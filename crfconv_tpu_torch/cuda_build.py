@@ -1,0 +1,161 @@
+"""Build, load and launch the port's CUDA kernels (``csrc/*.cu``).
+
+Each source compiles on first use with ``nvcc`` for ``sm_90a`` into a
+shared library with a plain C interface, and is loaded with ``ctypes``.
+Libraries go to ``_build/`` inside the package, named by a hash of the
+sources and flags, so a changed source rebuilds and an unchanged one is
+reused. Every missing library builds at once, one ``nvcc`` process per
+source.
+
+Each C entry point launches on the stream it is given and returns
+``cudaGetLastError()``; :class:`Kernel` raises if that is not 0 and counts
+the launches that succeeded.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Iterable, Optional, Sequence
+
+PACKAGE_DIR = Path(__file__).resolve().parent
+CSRC = PACKAGE_DIR / "csrc"
+BUILD_DIR = PACKAGE_DIR / "_build"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC",
+)
+HEADERS = ("window.cuh",)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+
+
+def find_nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    for cand in ([os.path.join(home, "bin", "nvcc")] if home else []) + [
+        shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc",
+    ]:
+        if cand and os.path.isfile(cand):
+            return cand
+    raise RuntimeError(
+        "nvcc not found (set CUDA_HOME): the CUDA kernels are built from "
+        f"{CSRC} on first use"
+    )
+
+
+class Kernel:
+    """One C entry point of one source file; ``launches`` counts calls that
+    launched the kernel."""
+
+    def __init__(
+        self, name: str, source: str, symbol: str, argtypes: Sequence,
+        flags: Sequence[str] = (),
+    ):
+        self.name = name
+        self.source = source
+        self.symbol = symbol
+        self.argtypes = list(argtypes)
+        self.flags = tuple(flags)
+        self.launches = 0
+        self._fn = None
+
+    def library_path(self) -> Path:
+        h = hashlib.sha256()
+        for name in (self.source,) + HEADERS:
+            h.update((CSRC / name).read_bytes())
+        h.update(" ".join(NVCC_FLAGS + self.flags).encode())
+        return BUILD_DIR / f"{Path(self.source).stem}-{h.hexdigest()[:16]}.so"
+
+    def build_command(self, out: Path, verbose: bool = False) -> list:
+        cmd = [find_nvcc(), *NVCC_FLAGS, *self.flags]
+        if verbose:
+            cmd.append("-Xptxas=-v")
+        return cmd + ["-o", str(out), str(CSRC / self.source)]
+
+    def _load(self):
+        path = self.library_path()
+        if not path.exists():
+            build([self])
+        fn = getattr(ctypes.CDLL(str(path)), self.symbol)
+        fn.argtypes = self.argtypes
+        fn.restype = ctypes.c_int
+        self._fn = fn
+
+    def __call__(self, *args) -> None:
+        if self._fn is None:
+            self._load()
+        rc = self._fn(*args)
+        if rc != 0:
+            raise RuntimeError(f"{self.name}: CUDA error {rc} at launch")
+        self.launches += 1
+
+
+WINDOWED_GATHER = Kernel(
+    "windowed_gather", "windowed_gather.cu", "windowed_gather_f32",
+    [_P] * 4 + [_I] * 8 + [_P],
+)
+WINDOW_KNN = Kernel(
+    "window_knn", "window_knn.cu", "window_knn_f32",
+    [_P] * 4 + [_I] * 9 + [_P],
+    flags=("-fmad=false",),
+)
+POINT_CONV_FUSED_INFER = Kernel(
+    "point_conv_fused_infer", "point_conv.cu", "point_conv_infer_f32",
+    [_P] * 11 + [_I] * 7 + [ctypes.c_float, _P],
+)
+CRF_SIMILARITY_MESSAGE = Kernel(
+    "crf_similarity_message", "crf_sim.cu", "crf_similarity_message_f32",
+    [_P] * 6 + [_I] * 7 + [_P],
+)
+KERNELS = (
+    WINDOWED_GATHER, WINDOW_KNN, POINT_CONV_FUSED_INFER,
+    CRF_SIMILARITY_MESSAGE,
+)
+
+
+def build(
+    kernels: Optional[Iterable[Kernel]] = None, verbose: bool = False,
+) -> float:
+    """Compile every library of ``kernels`` (default: all) that is missing,
+    one ``nvcc`` per source, all started together. Returns the seconds
+    spent. ``verbose`` prints ptxas' register and shared-memory report."""
+    t0 = time.perf_counter()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    jobs = []
+    for k in KERNELS if kernels is None else kernels:
+        out = k.library_path()
+        if out.exists():
+            continue
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        proc = subprocess.Popen(
+            k.build_command(tmp, verbose), stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True,
+        )
+        jobs.append((k, proc, tmp, out))
+    errors = []
+    for k, proc, tmp, out in jobs:
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            errors.append(f"{k.source}:\n{log}")
+            continue
+        if verbose and log:
+            print(f"# nvcc {k.source}\n{log}", end="", flush=True)
+        os.replace(tmp, out)
+    if errors:
+        raise RuntimeError("nvcc failed\n" + "\n".join(errors))
+    return time.perf_counter() - t0
+
+
+def reset_launch_counts() -> None:
+    for k in KERNELS:
+        k.launches = 0
+
+
+def launch_counts() -> dict:
+    return {k.name: k.launches for k in KERNELS}
