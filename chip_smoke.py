@@ -17,6 +17,20 @@
    weights, and checks outputs and launch counts.
 5. Runs one forward with the kernels and one with the plain versions on
    the same pyramid and compares the logits.
+6. Train: takes one warm-up step of the full-width flagship (B8 x 8192,
+   dropout 0.5, SGD lr 0.01) through make_train_step, recording every
+   kernel call of that step, and holds K7 and K8 against their plain
+   versions on those calls, timed as in 3.
+7. Train main path: resets the launch counts, takes TRAIN_STEPS steps and
+   checks the loss, that every gradient is finite and not all zero, that
+   every parameter and running statistic moved, and the launch counts per
+   step; times the step and its phases and profiles one step.
+8. From one state, one pyramid and one dropout seed, takes a step with the
+   kernels and one through the plain versions, differentiated by autograd
+   (not through the port's autograd Functions), and compares loss,
+   gradients, parameters and running statistics.
+9. One eval step, a checkpoint saved and restored into a fresh state, and
+   the same eval step on it: the probabilities must be identical.
 
 Prints the card's name and power limit, one JSON line of kernel results
 and, last, {"ok": true, "device": {...}}. Exits non-zero, without that
@@ -29,6 +43,7 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -40,6 +55,9 @@ import torch
 HERE = os.path.dirname(os.path.abspath(__file__))
 B, N, C_IN, N_CLASSES = 8, 8192, 6, 13
 REQUESTS = 3
+TRAIN_STEPS = 5
+DROPOUT = 0.5
+LR = 0.01
 SEED = 0
 DEVICE = "cuda:0"
 PEAK_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
@@ -51,11 +69,24 @@ EXPECTED_PER_REQUEST = {
     "point_conv_fused_infer": 2,
     "crf_similarity_message": 1,
 }
+# launches of each kernel per B8 x 8192 train step (pyramid, forward,
+# backward): K8 is the backward of every K1 gather whose source needs a
+# gradient (all but the two gathers of pos) and of both K7 calls
+EXPECTED_PER_STEP = {
+    "windowed_gather": 18,
+    "window_knn": 10,
+    "point_conv_fused_infer": 0,
+    "crf_similarity_message": 0,
+    "windowed_weighted_reduce": 2,
+    "windowed_gather_bwd": 18,
+}
 REPLACES = {
     "windowed_gather": "crfconv_tpu/ops/windowed_pallas.py:448",
     "window_knn": "crfconv_tpu/ops/windowed_pallas.py:684",
     "point_conv_fused_infer": "crfconv_tpu/ops/conv_pallas.py:380",
     "crf_similarity_message": "crfconv_tpu/ops/crf_sim_pallas.py:146",
+    "windowed_weighted_reduce": "crfconv_tpu/ops/windowed_pallas.py:842",
+    "windowed_gather_bwd": "crfconv_tpu/ops/windowed_pallas.py:372",
 }
 
 FAILURES = []
@@ -127,6 +158,28 @@ def call_sites():
     }
 
 
+def train_call_sites():
+    """As :func:`call_sites`, for the kernels of the train step: K1 and K7
+    are reached inside their autograd Functions, K8 in their backward."""
+    from crfconv_tpu_torch.ops import windowed
+
+    return {
+        "windowed_gather": (windowed, "_windowed_gather_launch",
+                            windowed._windowed_gather_launch,
+                            windowed.windowed_gather_plain),
+        "window_knn": (windowed, "window_knn", windowed.window_knn,
+                       windowed.window_knn_plain),
+        "windowed_weighted_reduce": (
+            windowed, "windowed_weighted_reduce",
+            windowed.windowed_weighted_reduce,
+            windowed.windowed_weighted_reduce_plain,
+        ),
+        "windowed_gather_bwd": (windowed, "windowed_gather_bwd",
+                                windowed.windowed_gather_bwd,
+                                windowed.windowed_gather_bwd_plain),
+    }
+
+
 def record_calls(sites, run):
     """Run ``run()`` and return every call each kernel wrapper received."""
     calls = {name: [] for name in sites}
@@ -169,6 +222,10 @@ def bound_of(name, args, out):
         x, idx = args[0], args[2]
         b, n, h = x.shape
         ops = b * n * idx.shape[2] * (2 * h * h + 11 * h + 3)
+    elif name == "windowed_weighted_reduce":
+        ops = 2 * args[1].numel()          # a multiply and an add per u
+    elif name == "windowed_gather_bwd":
+        ops = args[0].numel()              # an add per element of g
     else:  # crf_similarity_message
         y, idx = args[0], args[2]
         b, n, h = y.shape
@@ -204,7 +261,19 @@ def compare(name, args, got, ref):
                 got.shape[1], device=got.device)).all())
             expect(self_ok, "window_knn: column 0 is not self")
         return float((got.long() - ref.long()).abs().max())
-    # K3, K4: float32 sums in another order than the plain matmuls/sums
+    if name == "windowed_weighted_reduce":   # one order of the k-sum
+        expect(torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1]),
+               "windowed_weighted_reduce: out or xg not bit-equal")
+    if name == "windowed_gather_bwd":
+        # f32 atomics add each row's terms in another order than index_add_:
+        # the rounding scales with the magnitudes summed into the row, which
+        # a fixed atol cannot see at the gradients' scale (~1e-5 and below)
+        from crfconv_tpu_torch.ops.windowed import windowed_gather_bwd_plain
+        mass = windowed_gather_bwd_plain(args[0].abs(), *args[1:])
+        ok = bool(((got - ref).abs() <= 1e-5 * ref.abs() + 1e-6 * mass).all())
+        expect(ok, "windowed_gather_bwd: outside 1e-5 |ref| + 1e-6 mass")
+    # K3, K4: float32 sums in another order than the plain matmuls and
+    # sums; K8 also within the bound above
     err = 0.0
     for a, r in zip(got if isinstance(got, tuple) else (got,),
                     ref if isinstance(ref, tuple) else (ref,)):
@@ -215,22 +284,38 @@ def compare(name, args, got, ref):
 
 
 def library_call(name, args):
-    """One PyTorch call computing the same function, or None."""
-    if name != "windowed_gather":
-        return None
-    x, idx = args[0], args[1]
-    b_ix = torch.arange(x.shape[0], device=x.device)[:, None, None]
-    gidx = idx.long()   # window-consistent: the clamp is the identity
-    return lambda: x[b_ix, gidx]
+    """One PyTorch call computing the same function, or None. The main
+    path's indices are window-consistent, so the clamp is the identity."""
+    if name == "windowed_gather":
+        x, idx = args[0], args[1]
+        b_ix = torch.arange(x.shape[0], device=x.device)[:, None, None]
+        gidx = idx.long()
+        return lambda: x[b_ix, gidx]
+    if name == "windowed_gather_bwd":
+        g, idx, n = args[0], args[1], args[2]
+        b, f = g.shape[0], g.shape[-1]
+        rows = (torch.arange(b, device=g.device)[:, None, None] * n
+                + idx.long()).reshape(-1)
+        src = g.reshape(-1, f)
+        return lambda: torch.zeros(
+            (b * n, f), device=g.device
+        ).index_add_(0, rows, src)
+    return None
 
 
 def kernel_phase(name, kernel, plain, calls):
     err, bound_ms, by_ops = 0.0, 0.0, {"bytes": 0.0, "operations": 0.0}
+    ref_max = 0.0
     for args, kwargs in calls:
         got = kernel(*args, **kwargs)
         ref = plain(*args, **kwargs)
         torch.cuda.synchronize()
         err = max(err, compare(name, args, got, ref))
+        ref_max = max([ref_max] + [
+            float(r.abs().max()) for r in (ref if isinstance(ref, tuple)
+                                           else (ref,))
+            if r.is_floating_point() and r.numel()
+        ])
         b_ms, b_by = bound_of(name, args, got)
         bound_ms += b_ms
         by_ops[b_by] += b_ms
@@ -247,12 +332,13 @@ def kernel_phase(name, kernel, plain, calls):
         "replaces": REPLACES[name],
         "launches": None,
         "max_abs_err": err,
+        "max_abs_ref": ref_max,
         "ms": ms,
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
         "bound_by": max(by_ops, key=by_ops.get),
         "library_ms": library_ms,
-        "calls_per_forward": len(calls),
+        "calls": len(calls),
     }
 
 
@@ -293,22 +379,324 @@ def request(rng, device):
     return pos, feats
 
 
-def profile_request(predictor, pos, feats, path):
-    """Device time by kernel name over one request (torch.profiler)."""
+def profile_device(fn, path):
+    """Device time by kernel name over one call of ``fn`` (torch.profiler),
+    sorted by time; the chrome trace goes to ``path``."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
-        predictor.predict_logits(pos, feats)
+        fn()
         torch.cuda.synchronize()
     from torch.autograd import DeviceType
 
     rows = []
-    for e in p.key_averages():   # device-side events only: the kernels
-        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0:
+    for e in p.key_averages():   # device-side events only: the kernels,
+        # copies and fills, not the ranges that annotate them on the device
+        # (Optimizer.step#SGD.step)
+        if (e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
+                and not getattr(e, "is_user_annotation", False)):
             rows.append((e.key, e.self_device_time_total / 1e3, e.count))
     rows.sort(key=lambda r: -r[1])
     p.export_chrome_trace(path)
     return rows
+
+
+# --------------------------------------------------------------------------
+# train
+# --------------------------------------------------------------------------
+
+
+def make_train_state(device, seed: int = SEED):
+    """A fresh TrainState of the full-width flagship, weights from ``seed``."""
+    from crfconv_tpu_torch import PointConvResNet, TrainState
+
+    model = PointConvResNet(
+        N_CLASSES, C_IN, use_crf=True, steps=1, dropout_rate=DROPOUT,
+        device=device, generator=torch.Generator().manual_seed(seed),
+    )
+    return TrainState.create(model, lr=LR)
+
+
+def train_batch(rng, device):
+    from crfconv_tpu_torch import RawBatch
+
+    pos, feats = request(rng, device)
+    y = torch.as_tensor(rng.integers(0, N_CLASSES, (B, N)), device=device)
+    return RawBatch(pos=pos, x=feats, y=y)
+
+
+def step_generator(device, i: int) -> torch.Generator:
+    """The generator of step ``i``: its pyramid offsets, then dropout."""
+    return torch.Generator(device=device).manual_seed(SEED + 1 + i)
+
+
+def snapshot(model) -> dict:
+    """Copies of every parameter and buffer, by name."""
+    return {n: t.detach().clone() for n, t in model.state_dict().items()}
+
+
+def step_phases_ms(state, raw, gen):
+    """One train step in make_train_step's order, with a synchronize after
+    each phase: host ms of (pyramid, forward + loss, backward, optimizer).
+    The confusion matrix, a few small kernels, is left out."""
+    from crfconv_tpu_torch.train.losses import segmentation_loss
+    from crfconv_tpu_torch.train.train_state import (
+        TRAIN_MODE, build_windowed_batch,
+    )
+
+    torch.cuda.synchronize()
+    marks = [time.perf_counter()]
+
+    def mark():
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+
+    state.model.train()
+    batch = build_windowed_batch(raw, gen, mode=TRAIN_MODE)
+    mark()
+    out = state.model(batch, TRAIN_MODE, dropout_generator=gen)
+    loss = segmentation_loss(out, batch.y)
+    mark()
+    state.optimizer.zero_grad(set_to_none=True)
+    loss.backward()
+    mark()
+    state.optimizer.step()
+    state.scheduler.step()
+    state.step += 1
+    mark()
+    return np.diff(marks) * 1e3
+
+
+def grad_gap(model_a, model_b):
+    """The worst gradient of two models as a fraction of its tolerance:
+    1e-4 of its tensor's largest magnitude, plus a floor of 1e-6 of the
+    model's largest for the gradients that are zero but for rounding (the
+    batch-norm bias of each deconv's unary_nn_1 and pairwise_nn_1: the
+    row-stochastic CRF message and the next batch norm remove a constant
+    shift of the first, the similarity sees only differences of the
+    second). Returns (fraction, its parameter's name, largest |grad|)."""
+    grads = [(n, p.grad, q.grad) for (n, p), q in
+             zip(model_a.named_parameters(), model_b.parameters())]
+    g_max = max(float(r.abs().max()) for _, _, r in grads)
+    worst, name = 0.0, None
+    for n, g, r in grads:
+        frac = float((g - r).abs().max()) / (
+            1e-4 * float(r.abs().max()) + 1e-6 * g_max)
+        if frac > worst:
+            worst, name = frac, n
+    return worst, name, g_max
+
+
+def print_phase(r) -> None:
+    print(f"# {r['name']}: {r['calls']} calls, kernel {r['ms']:.4f} ms, "
+          f"plain {r['plain_ms']:.4f} ms, bound {r['bound_ms'] * 1e3:.2f} us "
+          f"({r['bound_by']}), library {r['library_ms']}, max_abs_err "
+          f"{r['max_abs_err']:.3g} (max |plain| {r['max_abs_ref']:.3g})",
+          flush=True)
+
+
+def train_phases(dev, rng, out_dir: str, results: dict) -> dict:
+    """Phases 6-9: adds the K7 and K8 rows to ``results`` and each kernel's
+    launches in the train main path; returns the train measurements."""
+    from crfconv_tpu_torch import (
+        CheckpointManager, cuda_build, make_eval_step, make_train_step,
+    )
+    from crfconv_tpu_torch.models import point_conv_big
+    from crfconv_tpu_torch.ops import neighbors, windowed
+    from crfconv_tpu_torch.train.train_state import (
+        TRAIN_MODE, build_windowed_batch,
+    )
+
+    train_step = make_train_step(TRAIN_MODE)
+    state = make_train_state(dev)
+    raws = [train_batch(rng, dev) for _ in range(TRAIN_STEPS)]
+
+    # 6. warm-up step, recording every kernel call of a train step
+    sites = train_call_sites()
+    calls = record_calls(
+        sites, lambda: train_step(state, raws[0], step_generator(dev, 0))
+    )
+    torch.cuda.synchronize()
+    for name, got in calls.items():
+        per = EXPECTED_PER_STEP[name]
+        expect(len(got) == per,
+               f"train {name}: {len(got)} calls per step, expected {per}")
+    for name in ("windowed_weighted_reduce", "windowed_gather_bwd"):
+        _, _, kernel, plain = sites[name]
+        with torch.inference_mode():
+            results[name] = kernel_phase(name, kernel, plain, calls[name])
+        print_phase(results[name])
+    del calls
+
+    # 7. main path: TRAIN_STEPS steps
+    params = dict(state.model.named_parameters())
+    before = snapshot(state.model)
+    gens = [step_generator(dev, 1 + i) for i in range(TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    cuda_build.reset_launch_counts()
+    step_s, losses = [], []
+    for i, raw in enumerate(raws):
+        t0 = time.perf_counter()
+        m = train_step(state, raw, gens[i])
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        losses.append(float(m["loss"]))
+        expect(np.isfinite(losses[-1]), f"train step {i}: loss {losses[-1]}")
+        bad = [n for n, p in params.items()
+               if p.grad is None or not bool(torch.isfinite(p.grad).all())
+               or not bool(p.grad.any())]
+        expect(not bad, f"train step {i}: no, non-finite or all-zero "
+               f"gradient {bad[:4]}")
+        expect(tuple(m["confusion"].shape) == (N_CLASSES, N_CLASSES)
+               and int(m["confusion"].sum()) == B * N,
+               f"train step {i}: confusion matrix does not count {B * N}")
+    counts = cuda_build.launch_counts()
+    for name, per in EXPECTED_PER_STEP.items():
+        expect(counts[name] == per * TRAIN_STEPS,
+               f"train {name}: {counts[name]} launches in {TRAIN_STEPS} "
+               f"steps, expected {per * TRAIN_STEPS}")
+        results[name]["launches_train"] = counts[name]
+    after = snapshot(state.model)
+    still = [n for n in params if torch.equal(before[n], after[n])]
+    expect(not still, f"parameters that did not move: {still[:4]}")
+    stats = [n for n in before if n not in params]
+    same = [n for n in stats if torch.equal(before[n], after[n])]
+    expect(stats and not same, f"running statistics unchanged: {same[:4]}")
+    pts_s = TRAIN_STEPS * B * N / sum(step_s)
+    print(f"# trained {TRAIN_STEPS} steps of {B}x{N}: "
+          f"{[round(t * 1e3, 3) for t in step_s]} ms, {pts_s:.1f} points/s, "
+          f"loss {[round(v, 5) for v in losses]}", flush=True)
+
+    gen = step_generator(dev, 50)
+    step_ms = median_ms(lambda: train_step(state, raws[0], gen), runs=5,
+                        warmup=1)
+    split = np.median(
+        [step_phases_ms(state, raws[0], gen) for _ in range(5)], axis=0
+    )
+    print(f"# one train step: {step_ms:.3f} ms (events, median of 5); "
+          f"phases pyramid {split[0]:.3f}, forward+loss {split[1]:.3f}, "
+          f"backward {split[2]:.3f}, optimizer {split[3]:.3f} ms (host "
+          f"clock with a synchronize after each, median of 5)", flush=True)
+    profile_rows, busy_ms = [], None
+    try:
+        profile_rows = profile_device(
+            lambda: train_step(state, raws[0], gen),
+            os.path.join(out_dir, "chip_smoke_train_trace.json"),
+        )
+        busy_ms = sum(r[1] for r in profile_rows)
+        print(f"# train profiler: {sum(r[2] for r in profile_rows)} kernel "
+              f"launches, busy {busy_ms:.3f} ms in one step of "
+              f"{step_ms:.3f} ms (idle share {1 - busy_ms / step_ms:.3f}); "
+              f"top:", flush=True)
+        for key, ms, cnt in profile_rows[:12]:
+            print(f"#   {ms:9.4f} ms  x{cnt:<4d} {key[:90]}", flush=True)
+    except Exception as e:  # measurement extra: report and go on
+        print(f"# train profiler unavailable: {e!r}", flush=True)
+
+    # 8. one state, one pyramid, one dropout seed: kernels vs plain
+    # versions, and a second kernel step for K8's run-to-run spread. The
+    # plain step replaces the autograd Functions (K1/K8, K7/K8) at their
+    # call sites by the plain versions, so autograd differentiates those
+    # directly: a gradient the Functions dropped or mis-routed shows here
+    batch = build_windowed_batch(raws[0], step_generator(dev, 100),
+                                 mode=TRAIN_MODE)
+    pb_step = make_train_step(TRAIN_MODE, windowed=False)
+    sk, sk2, sp = (make_train_state(dev) for _ in range(3))
+    cuda_build.reset_launch_counts()
+    mk = pb_step(sk, batch, step_generator(dev, 101))
+    k_counts = cuda_build.launch_counts()
+    pb_step(sk2, batch, step_generator(dev, 101))
+    plain_pairs = [
+        (neighbors, "windowed_gather", windowed.windowed_gather_plain),
+        (point_conv_big, "weighted_gather_reduce",
+         lambda *a: windowed.windowed_weighted_reduce_plain(*a)[0]),
+    ]
+    cuda_build.reset_launch_counts()
+    with patched(plain_pairs):
+        mp = pb_step(sp, batch, step_generator(dev, 101))
+    p_counts = cuda_build.launch_counts()
+    torch.cuda.synchronize()
+    for name in ("windowed_gather", "windowed_weighted_reduce",
+                 "windowed_gather_bwd"):
+        expect(k_counts[name] == EXPECTED_PER_STEP[name],
+               f"kernel step: {k_counts[name]} launches of {name}")
+    expect(not any(p_counts.values()), f"plain step launched {p_counts}")
+    # K1 and K7 are bit-equal to their plain versions, so the forward and
+    # the loss are too. The backward differs only by the order of K8's and
+    # autograd's f32 atomics (~1e-7 relative per call; the backward makes
+    # no discrete choices that could amplify it)
+    loss_k, loss_p = float(mk["loss"]), float(mp["loss"])
+    expect(loss_k == loss_p, f"kernel vs plain step: loss {loss_k} vs {loss_p}")
+    d_grad, worst, g_max = grad_gap(sk.model, sp.model)
+    expect(d_grad <= 1.0, f"kernel vs plain step: gradient of {worst} at "
+           f"{d_grad:.3g} of its tolerance")
+    d_rerun, worst_rerun, _ = grad_gap(sk.model, sk2.model)
+    expect(d_rerun <= 1.0, f"kernel step rerun: gradient of {worst_rerun} "
+           f"at {d_rerun:.3g} of its tolerance")
+    rerun_bit_equal = all(
+        torch.equal(p.grad, q.grad)
+        for p, q in zip(sk.model.parameters(), sk2.model.parameters())
+    )
+    a, b = snapshot(sk.model), snapshot(sp.model)
+    off = []
+    for n in b:   # the bounds of the JAX package's own train-step test
+        atol = 5e-5 if n in params else 1e-5
+        if not torch.allclose(a[n], b[n], rtol=1e-3, atol=atol):
+            off.append(n)
+    expect(not off, f"kernel vs plain step: outside rtol 1e-3 {off[:4]}")
+    with patched(plain_pairs):
+        plain_step_ms = median_ms(lambda: pb_step(sp, batch, gen), runs=3,
+                                  warmup=1)
+    kernel_step_ms = median_ms(lambda: pb_step(sk, batch, gen), runs=3,
+                               warmup=1)
+    print(f"# train step kernels vs plain (one pyramid): loss {loss_k} vs "
+          f"{loss_p}, worst gradient {worst} at {d_grad:.3g} of its "
+          f"tolerance (largest |grad| {g_max:.3g}); kernel step rerun: "
+          f"gradients bit-equal {rerun_bit_equal}, worst {worst_rerun} at "
+          f"{d_rerun:.3g}; step on a built pyramid {kernel_step_ms:.3f} ms, "
+          f"plain versions {plain_step_ms:.3f} ms", flush=True)
+
+    # 9. eval step, checkpoint round trip
+    eval_step = make_eval_step(TRAIN_MODE)
+    e1 = eval_step(state, raws[0], step_generator(dev, 200))
+    ckpt_dir = os.path.join(out_dir, "chip_smoke_ckpt")
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    mgr = CheckpointManager(ckpt_dir)
+    mgr.save(state, state.step)
+    fresh = mgr.restore(make_train_state(dev, seed=SEED + 1))
+    e2 = eval_step(fresh, raws[0], step_generator(dev, 200))
+    torch.cuda.synchronize()
+    shutil.rmtree(ckpt_dir)
+    expect(tuple(e1["probs"].shape) == (B, N, N_CLASSES)
+           and bool(torch.isfinite(e1["probs"]).all()),
+           "eval probabilities not finite or of the wrong shape")
+    expect(fresh.step == state.step, f"restored step {fresh.step}")
+    expect(torch.equal(e1["probs"], e2["probs"])
+           and torch.equal(e1["preds"], e2["preds"]),
+           "eval after the checkpoint round trip differs")
+    print(f"# eval step and checkpoint round trip: loss "
+          f"{float(e1['loss']):.5f} before, {float(e2['loss']):.5f} after",
+          flush=True)
+    return {
+        "train_steps_ms": [t * 1e3 for t in step_s],
+        "train_points_per_s": pts_s,
+        "train_losses": losses,
+        "train_step_ms": step_ms,
+        "train_phases_ms": dict(zip(
+            ("pyramid", "forward_loss", "backward", "optimizer"),
+            map(float, split),
+        )),
+        "train_kernel_busy_ms": busy_ms,
+        "train_profile": profile_rows[:40],
+        "kernel_vs_plain_step": {
+            "loss": [loss_k, loss_p], "grad_of_tolerance": d_grad,
+            "grad_worst": worst, "grad_max": g_max,
+            "rerun_grad_of_tolerance": d_rerun,
+            "rerun_grads_bit_equal": rerun_bit_equal,
+            "kernel_step_ms": kernel_step_ms, "plain_step_ms": plain_step_ms,
+        },
+        "train_calls_per_step": EXPECTED_PER_STEP,
+    }
 
 
 def main() -> int:
@@ -357,12 +745,7 @@ def main() -> int:
     for name, (_, _, kernel, plain) in sites.items():
         with torch.inference_mode():
             results[name] = kernel_phase(name, kernel, plain, calls[name])
-        r = results[name]
-        print(f"# {name}: {r['calls_per_forward']} calls, kernel "
-              f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
-              f"{r['bound_ms'] * 1e3:.2f} us ({r['bound_by']}), library "
-              f"{r['library_ms']}, max_abs_err {r['max_abs_err']:.3g}",
-              flush=True)
+        print_phase(results[name])
 
     # K2 in exact selection mode on the same recorded calls (the main path
     # selects with packed keys)
@@ -387,12 +770,11 @@ def main() -> int:
         torch.cuda.synchronize()
         lat.append(time.perf_counter() - t0)
         outs.append(logits)
-    counts = cuda_build.launch_counts()
+    serve_counts = cuda_build.launch_counts()
     for name, per in EXPECTED_PER_REQUEST.items():
-        expect(counts[name] == per * REQUESTS,
-               f"{name}: {counts[name]} launches in {REQUESTS} requests, "
-               f"expected {per * REQUESTS}")
-        results[name]["launches"] = counts[name]
+        expect(serve_counts[name] == per * REQUESTS,
+               f"{name}: {serve_counts[name]} launches in {REQUESTS} "
+               f"requests, expected {per * REQUESTS}")
     for logits in outs:
         expect(tuple(logits.shape) == (B, N, N_CLASSES),
                f"logits shape {tuple(logits.shape)}")
@@ -451,8 +833,9 @@ def main() -> int:
     profile_rows, busy_ms = [], None
     try:
         with torch.inference_mode():
-            profile_rows = profile_request(
-                predictor, p_, f_, os.path.join(out_dir, "chip_smoke_trace.json")
+            profile_rows = profile_device(
+                lambda: predictor.predict_logits(p_, f_),
+                os.path.join(out_dir, "chip_smoke_trace.json"),
             )
         busy_ms = sum(r[1] for r in profile_rows)
         n_launch = sum(r[2] for r in profile_rows)
@@ -464,10 +847,15 @@ def main() -> int:
     except Exception as e:  # measurement extra: report and go on
         print(f"# profiler unavailable: {e!r}", flush=True)
 
+    train = train_phases(dev, rng, out_dir, results)
+
+    # launches: the serving main path's and the train main path's
     kernels = []
-    for name in EXPECTED_PER_REQUEST:
+    for name in REPLACES:
         r = dict(results[name])
-        r.pop("calls_per_forward")
+        r["launches_serve"] = serve_counts[name]
+        r["launches"] = r["launches_serve"] + r["launches_train"]
+        r["calls_per_run"] = r.pop("calls")
         kernels.append(r)
     summary = {
         "device": torch.cuda.get_device_name(0),
@@ -482,10 +870,9 @@ def main() -> int:
         "max_abs_dlogit": d_logit,
         "argmax_agreement": argmax_agree,
         "kernels": kernels,
-        "calls_per_forward": {n: results[n]["calls_per_forward"]
-                              for n in results},
         "kernel_busy_ms": busy_ms,
         "profile": profile_rows[:40],
+        **train,
         "failures": FAILURES,
     }
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as fh:

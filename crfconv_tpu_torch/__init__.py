@@ -1,21 +1,31 @@
 """crfconv_tpu_torch: the PyTorch/CUDA port of crfconv_tpu.
 
-The flagship continuous-CRF point-convolution U-Net served on an NVIDIA
-H100, with the windowed regime's kernels written by hand in CUDA C++
-(``csrc/``, built on first use by ``cuda_build``). On CPU tensors every
+The flagship continuous-CRF point-convolution U-Net served and trained on
+an NVIDIA H100, with the windowed regime's kernels written by hand in CUDA
+C++ (``csrc/``, built on first use by ``cuda_build``). On CPU tensors every
 kernel wrapper runs its plain PyTorch version.
 """
 
 from crfconv_tpu_torch.convert import from_flax
+from crfconv_tpu_torch.data.batch import RawBatch
 from crfconv_tpu_torch.models.point_conv_big import PointConvResNet
 from crfconv_tpu_torch.ops.neighbors import NeighborMode
 from crfconv_tpu_torch.ops.windowed import build_pyramid_windowed
 from crfconv_tpu_torch.serve import Predictor
+from crfconv_tpu_torch.train.checkpoint import CheckpointManager
+from crfconv_tpu_torch.train.train_state import (
+    TrainState, make_eval_step, make_train_step,
+)
 
 __all__ = [
+    "CheckpointManager",
     "NeighborMode",
     "PointConvResNet",
     "Predictor",
+    "RawBatch",
+    "TrainState",
     "build_pyramid_windowed",
     "from_flax",
+    "make_eval_step",
+    "make_train_step",
 ]

@@ -89,7 +89,7 @@ extern "C" int crf_similarity_message_f32(const void* y, const void* z,
                                           void* s, void* msg, int b, int n,
                                           int k, int h, int tile, int width,
                                           int front, void* stream) {
-  if (b == 0 || n == 0) return 0;
+  if (b == 0 || n == 0) return -1;  // nothing to launch
   cudaStream_t st = (cudaStream_t)stream;
   if (h <= 8) {
     launch<8>(y, z, idx, starts, s, msg, b, n, k, h, tile, width, front, st);

@@ -115,7 +115,7 @@ extern "C" int point_conv_infer_f32(const void* x, const void* pos,
                                     int b, int n, int k, int h, int tile,
                                     int width, int front, float slope,
                                     void* stream) {
-  if (b == 0 || n == 0) return 0;
+  if (b == 0 || n == 0) return -1;  // nothing to launch
   cudaStream_t s = (cudaStream_t)stream;
   if (h <= 8) {
     launch<8>(x, pos, idx, starts, w0, a0, c0, w1, a1, c1, out, b, n, k, h,

@@ -128,7 +128,7 @@ extern "C" int window_knn_f32(const void* q, const void* pos,
                               int n, int k, int tile, int width, int front,
                               int self_same, int exact, void* stream) {
   const int nt = (m + tile - 1) / tile;
-  if (b == 0 || nt == 0 || k == 0) return 0;
+  if (b == 0 || nt == 0 || k == 0) return -1;  // nothing to launch
   const size_t smem = (size_t)(4 + kWarps) * width * sizeof(float);
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(

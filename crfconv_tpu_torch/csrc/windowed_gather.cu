@@ -41,7 +41,7 @@ extern "C" int windowed_gather_f32(const void* x, const void* idx,
                                    int m, int k, int f, int tile, int width,
                                    int front, void* stream) {
   const int nt = (m + tile - 1) / tile;
-  if (b == 0 || nt == 0 || k == 0 || f == 0) return 0;
+  if (b == 0 || nt == 0 || k == 0 || f == 0) return -1;  // nothing to launch
   dim3 grid(nt, b);
   windowed_gather_kernel<<<grid, 256, 0, (cudaStream_t)stream>>>(
       (const float*)x, (const int*)idx, (const int*)starts, (float*)out, n, m,

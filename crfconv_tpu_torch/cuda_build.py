@@ -8,8 +8,9 @@ reused. Every missing library builds at once, one ``nvcc`` process per
 source.
 
 Each C entry point launches on the stream it is given and returns
-``cudaGetLastError()``; :class:`Kernel` raises if that is not 0 and counts
-the launches that succeeded.
+``cudaGetLastError()``, or ``NOTHING_LAUNCHED`` for an empty problem;
+:class:`Kernel` raises on any other code that is not 0 and counts the
+launches that succeeded.
 """
 
 from __future__ import annotations
@@ -32,6 +33,7 @@ NVCC_FLAGS = (
 )
 HEADERS = ("window.cuh",)
 
+NOTHING_LAUNCHED = -1   # an entry point's code for an empty problem
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 
@@ -91,6 +93,8 @@ class Kernel:
         if self._fn is None:
             self._load()
         rc = self._fn(*args)
+        if rc == NOTHING_LAUNCHED:
+            return
         if rc != 0:
             raise RuntimeError(f"{self.name}: CUDA error {rc} at launch")
         self.launches += 1
@@ -113,9 +117,17 @@ CRF_SIMILARITY_MESSAGE = Kernel(
     "crf_similarity_message", "crf_sim.cu", "crf_similarity_message_f32",
     [_P] * 6 + [_I] * 7 + [_P],
 )
+WINDOWED_WEIGHTED_REDUCE = Kernel(
+    "windowed_weighted_reduce", "windowed_weighted_reduce.cu",
+    "windowed_weighted_reduce_f32", [_P] * 6 + [_I] * 8 + [_P],
+)
+WINDOWED_GATHER_BWD = Kernel(
+    "windowed_gather_bwd", "windowed_gather_bwd.cu", "windowed_gather_bwd_f32",
+    [_P] * 4 + [_I] * 8 + [_P],
+)
 KERNELS = (
     WINDOWED_GATHER, WINDOW_KNN, POINT_CONV_FUSED_INFER,
-    CRF_SIMILARITY_MESSAGE,
+    CRF_SIMILARITY_MESSAGE, WINDOWED_WEIGHTED_REDUCE, WINDOWED_GATHER_BWD,
 )
 
 

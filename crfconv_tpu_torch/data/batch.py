@@ -28,9 +28,24 @@ class ScaleData(NamedTuple):
     up_idx: Optional[torch.Tensor] = None
 
 
+class RawBatch(NamedTuple):
+    """A batch before its pyramid is built (on the device, by
+    ``train.train_state.build_windowed_batch``)."""
+
+    pos: torch.Tensor                         # [B, N, 3]
+    x: torch.Tensor                           # [B, N, C_in]
+    y: Optional[torch.Tensor] = None          # [B, N]
+    point_idx: Optional[torch.Tensor] = None  # [B, N] original-cloud ids
+    cloud_idx: Optional[torch.Tensor] = None  # [B]
+    category: Optional[torch.Tensor] = None   # [B]
+
+
 class PointBatch(NamedTuple):
     """A dense batch of fixed-size point clouds plus its index pyramid."""
 
     x: torch.Tensor                     # [B, N, C_in] features
     y: Optional[torch.Tensor]           # [B, N] labels (None at inference)
     scales: Tuple[ScaleData, ...]
+    point_idx: Optional[torch.Tensor] = None  # [B, N] original-cloud ids
+    cloud_idx: Optional[torch.Tensor] = None  # [B]
+    category: Optional[torch.Tensor] = None   # [B]

@@ -2,8 +2,8 @@
 
 Counterpart of ``crfconv_tpu/models/common.py``: ``MLP`` is Linear (bias
 iff no batch norm) -> batch norm -> activation. Parameter and buffer names
-follow the flax tree (``convert.from_flax``). Only the eval path of the
-batch norm is here; train-mode statistics come with the train-step slice.
+follow the flax tree (``convert.from_flax``). The batch norm has no
+validity mask: that belongs to point-sharded training, not ported yet.
 """
 
 from __future__ import annotations
@@ -14,6 +14,8 @@ from typing import Callable, Optional
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+BN_MOMENTUM = 0.9   # running stats: ra = 0.9 * ra + 0.1 * batch, as flax
 
 
 def leaky_relu01(x: torch.Tensor) -> torch.Tensor:
@@ -26,9 +28,29 @@ def leaky_relu001(x: torch.Tensor) -> torch.Tensor:
     return F.leaky_relu(x, negative_slope=0.01)
 
 
+def dropout(x: torch.Tensor, rate: float,
+            generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Inverted dropout drawn from ``generator`` (on x's device): keeps each
+    element with probability 1 - rate, scaled by 1 / (1 - rate)."""
+    if rate == 0.0:
+        return x
+    if generator is None:
+        raise ValueError("dropout in training needs an explicit generator")
+    if rate >= 1.0:
+        return torch.zeros_like(x)
+    keep = torch.rand(x.shape, generator=generator, device=x.device) >= rate
+    return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
+
+
 class MaskedBatchNorm(nn.Module):
-    """Batch norm over all leading axes, eval mode: normalises with the
-    running statistics, y = (x - mean) / sqrt(var + eps) * scale + bias."""
+    """Batch norm over all leading axes, y = (x - mean) / sqrt(var + eps) *
+    scale + bias.
+
+    Train mode normalises with the biased batch statistics (in at least
+    float32) and updates the running statistics the flax way,
+    ``ra = BN_MOMENTUM * ra + (1 - BN_MOMENTUM) * batch``, with the unbiased
+    variance; eval mode normalises with the running statistics.
+    """
 
     def __init__(self, features: int, epsilon: float = 1e-5, device=None):
         super().__init__()
@@ -39,13 +61,21 @@ class MaskedBatchNorm(nn.Module):
         self.register_buffer("var", torch.ones(features, device=device))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.training:
-            raise NotImplementedError(
-                "train-mode batch statistics come with the train-step slice "
-                "of the port; call .eval()"
-            )
-        y = (x - self.mean) * torch.rsqrt(self.var + self.epsilon)
-        return y * self.scale + self.bias
+        if not self.training:
+            y = (x - self.mean) * torch.rsqrt(self.var + self.epsilon)
+            return y * self.scale + self.bias
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
+        dims = tuple(range(x.dim() - 1))
+        mean = xf.mean(dim=dims)
+        var = (xf - mean).square().mean(dim=dims)
+        with torch.no_grad():
+            count = float(x.numel() // x.shape[-1])
+            unbiased = var * count / max(count - 1.0, 1.0)
+            m = BN_MOMENTUM
+            self.mean.copy_(m * self.mean + (1 - m) * mean)
+            self.var.copy_(m * self.var + (1 - m) * unbiased)
+        y = (x - mean) * torch.rsqrt(var + self.epsilon)
+        return (y * self.scale + self.bias).to(x.dtype)
 
 
 class MLP(nn.Module):

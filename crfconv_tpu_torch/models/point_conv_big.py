@@ -14,14 +14,17 @@ import torch
 import torch.nn as nn
 
 from crfconv_tpu_torch.data.batch import PointBatch
-from crfconv_tpu_torch.models.common import MLP, leaky_relu001, leaky_relu01
+from crfconv_tpu_torch.models.common import (
+    MLP, dropout, leaky_relu001, leaky_relu01,
+)
 from crfconv_tpu_torch.models.crf_conv import ContinuousCRFConv
 from crfconv_tpu_torch.ops.conv import (
-    fold_bn, fused_eligible, point_conv_fused_infer,
+    fold_bn, fused_eligible, point_conv_fused_infer, train_fused_eligible,
 )
 from crfconv_tpu_torch.ops.neighbors import (
     NeighborMode, gather_neighbors, upsample_nearest,
 )
+from crfconv_tpu_torch.ops.windowed import weighted_gather_reduce
 
 
 def _folded(mlp: MLP):
@@ -57,6 +60,19 @@ class PointConv(nn.Module):
             return point_conv_fused_infer(
                 x.contiguous(), pos, neighbor_idx, w0, a0, c0, w1, a1, c1,
                 mode.tile, mode.pad,
+            )
+        if sub_pos is None and train_fused_eligible(
+            self.training, self.d_model, neighbor_idx.shape[1],
+            neighbor_idx.shape[2], mode.windowed, mode.tile,
+        ):
+            # train: the weight MLP keeps its batch statistics here; the
+            # gather of x and the sum over K run fused (K7, backward K8)
+            nbr = gather_neighbors(pos, neighbor_idx, mode)   # [B, N, K, 3]
+            rel = pos[:, :, None, :] - nbr
+            w = self.weight_nn_1(self.weight_nn_0(rel))       # [B, N, K, d]
+            return weighted_gather_reduce(
+                x.contiguous(), w.contiguous(), neighbor_idx, mode.tile,
+                mode.pad,
             )
         # one gather for [pos, x(, extra)]
         d = x.shape[-1]
@@ -122,8 +138,9 @@ class PointConvResNet(nn.Module):
     """The flagship encoder-decoder segmentation network.
 
     Weights are drawn from ``generator`` (default: seeded with 0) with
-    torch.nn.Linear's init; batch norms start at identity. The model is
-    built on ``device``.
+    torch.nn.Linear's init; the classifier's bias starts at zero (flax's
+    ``nn.Dense``) and batch norms at identity. The model is built on
+    ``device``.
     """
 
     def __init__(
@@ -162,7 +179,7 @@ class PointConvResNet(nn.Module):
         self.deconv2 = deconv(L[2], L[1])
         self.deconv1 = deconv(L[1], L[0])
         self.classifier_0 = MLP(L[0], L[0] * 4, leaky_relu01, device=dev)
-        self.dropout = nn.Dropout(dropout_rate)
+        self.dropout_rate = dropout_rate
         self.classifier_1 = MLP(L[0] * 4, n_classes, None, use_bn=False,
                                 device=dev)
         if generator is None:
@@ -170,10 +187,15 @@ class PointConvResNet(nn.Module):
         for m in self.modules():
             if isinstance(m, MLP):
                 m.reset_parameters(generator)
+        with torch.no_grad():
+            self.classifier_1.bias.zero_()
 
     def forward(
-        self, batch: PointBatch, mode: NeighborMode = NeighborMode()
+        self, batch: PointBatch, mode: NeighborMode = NeighborMode(),
+        dropout_generator: Optional[torch.Generator] = None,
     ) -> torch.Tensor:
+        """Logits [B, N, n_classes]. In training, dropout draws its mask
+        from ``dropout_generator`` (on the batch's device)."""
         ms = batch.scales
         x = batch.x
         x1 = self.conv1_1(x, ms[0].pos, ms[0].neighbor_idx, mode)
@@ -192,5 +214,7 @@ class PointConvResNet(nn.Module):
         x = self.deconv2(x, x2, ms[1].up_idx, ms[1].neighbor_idx, mode)
         x = self.deconv1(x, x1, ms[0].up_idx, ms[0].neighbor_idx, mode)
 
-        x = self.dropout(self.classifier_0(x))
+        x = self.classifier_0(x)
+        if self.training:
+            x = dropout(x, self.dropout_rate, dropout_generator)
         return self.classifier_1(x)  # [B, N, n_classes] logits

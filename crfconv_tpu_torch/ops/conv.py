@@ -1,4 +1,5 @@
-"""Fused eval-mode point convolution (kernel K3) and the batch-norm fold.
+"""Fused eval-mode point convolution (kernel K3), the batch-norm fold and
+the dispatch guards of the fused point-conv paths.
 
 Counterpart of ``crfconv_tpu/ops/conv_pallas.py::point_conv_fused_infer``:
 
@@ -15,7 +16,9 @@ import torch
 import torch.nn.functional as F
 
 from crfconv_tpu_torch.cuda_build import POINT_CONV_FUSED_INFER
-from crfconv_tpu_torch.ops._launch import check, on_cuda, ptr, stream
+from crfconv_tpu_torch.ops._launch import (
+    check, check_no_grad, on_cuda, ptr, stream,
+)
 from crfconv_tpu_torch.ops.windowed import (
     PAD, TILE, _geometry, windowed_gather_plain,
 )
@@ -37,6 +40,19 @@ def fused_eligible(training: bool, hidden: int, n_rows: int,
     )
 
 
+def train_fused_eligible(training: bool, hidden: int, n_rows: int, k: int,
+                         windowed: bool, tile: int) -> bool:
+    """A same-scale train PointConv contracts through the fused weighted
+    gather-reduce (``ops/windowed.py::weighted_gather_reduce``, kernel K7)
+    in the windowed regime for hidden <= FUSED_MAX_H, K a multiple of
+    128 // tile and at least FUSED_MIN_ROWS rows, as the reference's
+    ``conv_pallas.train_fused_eligible`` (without its VMEM guard)."""
+    return (
+        training and windowed and hidden <= FUSED_MAX_H
+        and k % max(128 // tile, 1) == 0 and n_rows >= FUSED_MIN_ROWS
+    )
+
+
 def fold_bn(weight, scale, bias, mean, var, eps: float = BN_EPS):
     """Linear weight [out, in] followed by eval batch norm -> (W [in, out],
     a, c) with bn(x W) = a * (x W) + c."""
@@ -54,6 +70,7 @@ def point_conv_fused_infer(
         return point_conv_fused_infer_plain(
             x, pos, idx, w0, a0, c0, w1, a1, c1, tile, pad, slope
         )
+    check_no_grad("point_conv_fused_infer", x, pos, w0, a0, c0, w1, a1, c1)
     B, N, H = x.shape
     check(x, "x", torch.float32, 3)
     check(pos, "pos", torch.float32, 3)

@@ -5,10 +5,12 @@ Gaussian similarity s over K neighbours, iterate
 
     x <- (z + (S x) C)(I + C)^-1,   C = c^T c.
 
-Only the scan form is here. On the GPU the model runs at steps=1, where
-the first message comes from the fused similarity kernel (``msg0``) and no
-iteration is left; steps >= 2 there needs the fused CRF iterate kernels,
-which come with a later slice of the port (ROADMAP.md, slice 4).
+Only the scan form is here, differentiable by autograd. On the GPU the
+model runs at steps=1, where the first message comes from the fused
+similarity kernel (``msg0``, serving) or from the gathered neighbours
+(``neighbors0``, training) and no iteration is left; steps >= 2 there
+needs the fused CRF iterate kernels, which come with a later slice of the
+port (ROADMAP.md, slice 4).
 """
 
 from __future__ import annotations

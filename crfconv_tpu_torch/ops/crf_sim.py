@@ -11,7 +11,9 @@ from __future__ import annotations
 import torch
 
 from crfconv_tpu_torch.cuda_build import CRF_SIMILARITY_MESSAGE
-from crfconv_tpu_torch.ops._launch import check, on_cuda, ptr, stream
+from crfconv_tpu_torch.ops._launch import (
+    check, check_no_grad, on_cuda, ptr, stream,
+)
 from crfconv_tpu_torch.ops.windowed import (
     PAD, TILE, _geometry, windowed_gather_plain,
 )
@@ -37,6 +39,7 @@ def crf_similarity_message(
     (msg [B, N, H], s [B, N, K])."""
     if not on_cuda(y, z, idx):
         return crf_similarity_message_plain(y, z, idx, tile, pad)
+    check_no_grad("crf_similarity_message", y, z)
     check(y, "y", torch.float32, 3)
     check(z, "z", torch.float32, 3)
     check(idx, "idx", torch.int32, 3)

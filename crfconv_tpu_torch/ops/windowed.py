@@ -17,9 +17,13 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from crfconv_tpu_torch.cuda_build import WINDOW_KNN, WINDOWED_GATHER
+from crfconv_tpu_torch.cuda_build import (
+    WINDOW_KNN, WINDOWED_GATHER, WINDOWED_GATHER_BWD, WINDOWED_WEIGHTED_REDUCE,
+)
 from crfconv_tpu_torch.data.batch import ScaleData
-from crfconv_tpu_torch.ops._launch import check, on_cuda, ptr, stream
+from crfconv_tpu_torch.ops._launch import (
+    check, check_no_grad, on_cuda, ptr, stream,
+)
 from crfconv_tpu_torch.ops.morton import morton_order
 
 TILE = 64      # output rows per window tile
@@ -97,9 +101,36 @@ def windowed_gather(
     Each index is clamped into its output tile's window; a clamped row
     outside [0, N) reads zero. For window-consistent indices (as
     ``window_knn`` makes them) this is the exact gather x[b, idx].
+    Differentiable in x: the backward is :func:`windowed_gather_bwd`
+    (kernel K8), the exact transpose, for every geometry.
     """
+    return _WindowedGather.apply(x, idx, tile, pad)
+
+
+class _WindowedGather(torch.autograd.Function):
+    """K1 forward, K8 backward (counterpart of the custom VJP of
+    ``crfconv_tpu/ops/windowed.py::windowed_gather``)."""
+
+    @staticmethod
+    def forward(ctx, x, idx, tile, pad):
+        ctx.save_for_backward(idx)
+        ctx.geometry = (x.shape[1], tile, pad)
+        return _windowed_gather_launch(x, idx, tile, pad)
+
+    @staticmethod
+    def backward(ctx, g):
+        (idx,) = ctx.saved_tensors
+        n, tile, pad = ctx.geometry
+        # slices of the output (g[..., :3]) reach here non-contiguous
+        dx = windowed_gather_bwd(g.contiguous(), idx, n, tile, pad)
+        return dx, None, None, None
+
+
+def _windowed_gather_launch(x, idx, tile, pad):
+    """K1 on CUDA tensors, its plain version on CPU tensors."""
     if not on_cuda(x, idx):
         return windowed_gather_plain(x, idx, tile, pad)
+    check_no_grad("windowed_gather", x)
     check(x, "x", torch.float32, 3)
     check(idx, "idx", torch.int32, 3)
     B, N, Fd = x.shape
@@ -123,14 +154,158 @@ def windowed_gather_plain(
     B, N, Fd = x.shape
     M, K = idx.shape[1], idx.shape[2]
     starts, width, front = window_starts(M, N, tile, pad)
-    xp = _pad_src(x, front, width, starts)
-    row_start = torch.as_tensor(starts, device=x.device).repeat_interleave(
-        tile
-    )[:M]
-    rel = (idx.long() + front - row_start[None, :, None]).clamp(0, width - 1)
-    rows = (row_start[None, :, None] + rel).reshape(B, M * K)
+    xp = _pad_src(x, front, width, starts)   # zero rows outside [0, N)
+    rows = (_clamped_rows(idx, N, tile, pad) + front).reshape(B, M * K)
     b_ix = torch.arange(B, device=x.device)[:, None]
     return xp[b_ix, rows].reshape(B, M, K, Fd)
+
+
+def _clamped_rows(idx: torch.Tensor, n_src: int, tile: int, pad: int):
+    """The source row (in [B, M, K], unpadded, possibly outside [0, N))
+    that the window clamp assigns to each index."""
+    M = idx.shape[1]
+    starts, width, front = window_starts(M, n_src, tile, pad)
+    row_start = torch.as_tensor(starts, device=idx.device).repeat_interleave(
+        tile
+    )[:M][None, :, None]
+    rel = (idx.long() + front - row_start).clamp(0, width - 1)
+    return row_start - front + rel
+
+
+# ---------------------------------------------------------------------------
+# K8: windowed gather backward (the gather's transpose)
+# ---------------------------------------------------------------------------
+
+
+def windowed_gather_bwd(
+    g: torch.Tensor, idx: torch.Tensor, n_src: int,
+    tile: int = TILE, pad: int = PAD,
+) -> torch.Tensor:
+    """Transpose of :func:`windowed_gather`: g [B, M, K, F] f32, idx
+    [B, M, K] int32 -> dx [B, n_src, F], dx[b, row(idx)] += g[b, m, k].
+
+    ``row`` is the window clamp of the forward; slots whose clamped row
+    lies outside [0, n_src) are dropped. The kernel adds with atomics, so
+    its sums are not bit-reproducible from run to run.
+    """
+    if not on_cuda(g, idx):
+        return windowed_gather_bwd_plain(g, idx, n_src, tile, pad)
+    check_no_grad("windowed_gather_bwd", g)
+    check(g, "g", torch.float32, 4)
+    check(idx, "idx", torch.int32, 3)
+    B, M, K, Fd = g.shape
+    if idx.shape != (B, M, K):
+        raise ValueError(f"g {tuple(g.shape)}, idx {tuple(idx.shape)}")
+    starts, width, front = _geometry(M, n_src, tile, pad, g.device)
+    dx = torch.zeros((B, n_src, Fd), dtype=g.dtype, device=g.device)
+    with torch.cuda.device(g.device):
+        WINDOWED_GATHER_BWD(
+            ptr(g), ptr(idx), ptr(starts), ptr(dx), B, n_src, M, K, Fd, tile,
+            width, front, stream(g.device),
+        )
+    return dx
+
+
+def windowed_gather_bwd_plain(
+    g: torch.Tensor, idx: torch.Tensor, n_src: int,
+    tile: int = TILE, pad: int = PAD,
+) -> torch.Tensor:
+    """Plain PyTorch version of :func:`windowed_gather_bwd`."""
+    B, M, K, Fd = g.shape
+    rows = _clamped_rows(idx, n_src, tile, pad)
+    keep = (rows >= 0) & (rows < n_src)
+    flat = torch.arange(B, device=g.device)[:, None, None] * n_src + rows.clamp(
+        0, n_src - 1
+    )
+    src = torch.where(keep[..., None], g, torch.zeros((), dtype=g.dtype,
+                                                      device=g.device))
+    dx = torch.zeros((B * n_src, Fd), dtype=g.dtype, device=g.device)
+    dx.index_add_(0, flat.reshape(-1), src.reshape(-1, Fd))
+    return dx.reshape(B, n_src, Fd)
+
+
+# ---------------------------------------------------------------------------
+# K7: weighted gather-reduce (the train-path point-conv contraction)
+# ---------------------------------------------------------------------------
+
+
+def weighted_gather_reduce(
+    x: torch.Tensor, u: torch.Tensor, idx: torch.Tensor,
+    tile: int = TILE, pad: int = PAD,
+) -> torch.Tensor:
+    """out_i = sum_k u_ik * x_idx(i,k): x [B, N, H], u [B, M, K, H],
+    idx [B, M, K] int32 (K1's clamp semantics) -> [B, M, H].
+
+    Differentiable in x and u (counterpart of the custom VJP of
+    ``crfconv_tpu/ops/windowed.py::weighted_gather_reduce``): the forward
+    is K7, which also keeps the gathered neighbours xg; the backward is
+    du = xg * g and dx = K8(u * g).
+    """
+    return _WeightedGatherReduce.apply(x, u, idx, tile, pad)
+
+
+class _WeightedGatherReduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, u, idx, tile, pad):
+        out, xg = windowed_weighted_reduce(x, u, idx, tile, pad)
+        ctx.save_for_backward(u, xg, idx)
+        ctx.geometry = (x.shape[1], tile, pad)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        u, xg, idx = ctx.saved_tensors
+        n, tile, pad = ctx.geometry
+        gb = g[:, :, None, :]
+        du = xg * gb if ctx.needs_input_grad[1] else None
+        dx = None
+        if ctx.needs_input_grad[0]:
+            dx = windowed_gather_bwd((u * gb).contiguous(), idx, n, tile, pad)
+        return dx, du, None, None, None
+
+
+def windowed_weighted_reduce(
+    x: torch.Tensor, u: torch.Tensor, idx: torch.Tensor,
+    tile: int = TILE, pad: int = PAD,
+):
+    """Kernel K7: (out [B, M, H], xg [B, M, K, H]) with xg the window-clamped
+    gather of x and out = sum_k u * xg. Not differentiable; the autograd
+    front is :func:`weighted_gather_reduce`."""
+    if not on_cuda(x, u, idx):
+        return windowed_weighted_reduce_plain(x, u, idx, tile, pad)
+    check_no_grad("windowed_weighted_reduce", x, u)
+    check(x, "x", torch.float32, 3)
+    check(u, "u", torch.float32, 4)
+    check(idx, "idx", torch.int32, 3)
+    B, N, H = x.shape
+    M, K = idx.shape[1], idx.shape[2]
+    if idx.shape[0] != B or u.shape != (B, M, K, H):
+        raise ValueError(
+            f"x {tuple(x.shape)}, u {tuple(u.shape)}, idx {tuple(idx.shape)}"
+        )
+    starts, width, front = _geometry(M, N, tile, pad, x.device)
+    out = torch.empty((B, M, H), dtype=x.dtype, device=x.device)
+    xg = torch.empty_like(u)
+    with torch.cuda.device(x.device):
+        WINDOWED_WEIGHTED_REDUCE(
+            ptr(x), ptr(u), ptr(idx), ptr(starts), ptr(out), ptr(xg), B, N,
+            M, K, H, tile, width, front, stream(x.device),
+        )
+    return out, xg
+
+
+def windowed_weighted_reduce_plain(
+    x: torch.Tensor, u: torch.Tensor, idx: torch.Tensor,
+    tile: int = TILE, pad: int = PAD,
+):
+    """Plain PyTorch version of :func:`windowed_weighted_reduce`
+    (differentiable by autograd). It sums over k in the kernel's order,
+    k ascending with no fused multiply-add, so the two are bit-equal."""
+    xg = windowed_gather_plain(x, idx, tile, pad)
+    out = u[:, :, 0] * xg[:, :, 0]
+    for j in range(1, idx.shape[2]):
+        out = out + u[:, :, j] * xg[:, :, j]
+    return out, xg
 
 
 # ---------------------------------------------------------------------------
