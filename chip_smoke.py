@@ -19,8 +19,8 @@
    the same pyramid and compares the logits.
 6. Train: takes one warm-up step of the full-width flagship (B8 x 8192,
    dropout 0.5, SGD lr 0.01) through make_train_step, recording every
-   kernel call of that step, and holds K7 and K8 against their plain
-   versions on those calls, timed as in 3.
+   kernel call of that step, and holds each kernel (K1, K2, K7, K8)
+   against its plain version on those calls, timed as in 3.
 7. Train main path: resets the launch counts, takes TRAIN_STEPS steps and
    checks the loss, that every gradient is finite and not all zero, that
    every parameter and running statistic moved, and the launch counts per
@@ -31,6 +31,21 @@
    gradients, parameters and running statistics.
 9. One eval step, a checkpoint saved and restored into a fresh state, and
    the same eval step on it: the probabilities must be identical.
+10. ScanNet (ScanNetConfig: CRFSegNet(20 classes, steps=10), B16 x 8192,
+    label_offset 1): one warm-up request and one warm-up train step,
+    recording every kernel call of each (K1, K2, K9, K10 in the request;
+    K1, K2, K8 and K9-K12 in the step), each held against its plain
+    version and timed as in 3.
+11. ScanNet serving main path: SCANNET_REQUESTS requests through
+    Predictor with seeded weights; outputs and exact launch counts; one
+    forward with the kernels against one through the plain versions on the
+    same pyramid; a profiled request.
+12. ScanNet train main path: TRAIN_STEPS steps through make_train_step with
+    ScanNet's settings, checked as in 7 (every CRF's c included); the step,
+    its phases and a profile.
+13. A ScanNet train step with the kernels against one through the plain
+    versions differentiated by autograd, from one state and pyramid, as in
+    8, and a second kernel step for the atomics' run-to-run spread.
 
 Prints the card's name and power limit, one JSON line of kernel results
 and, last, {"ok": true, "device": {...}}. Exits non-zero, without that
@@ -68,6 +83,8 @@ EXPECTED_PER_REQUEST = {
     "window_knn": 10,
     "point_conv_fused_infer": 2,
     "crf_similarity_message": 1,
+    "crf_operator": 0,          # steps = 1: no fused CRF core
+    "crf_iterate": 0,
 }
 # launches of each kernel per B8 x 8192 train step (pyramid, forward,
 # backward): K8 is the backward of every K1 gather whose source needs a
@@ -79,6 +96,37 @@ EXPECTED_PER_STEP = {
     "crf_similarity_message": 0,
     "windowed_weighted_reduce": 2,
     "windowed_gather_bwd": 18,
+    "crf_operator": 0,
+    "crf_iterate": 0,
+    "crf_iterate_bwd": 0,
+    "crf_neighbor_dot": 0,
+}
+SCANNET_REQUESTS = 3
+# launches per B16 x 8192 ScanNet request with CRFSegNet(steps=10): K1 is
+# the encoder's 10 gathers of [pos, h], 2 per k-NN interpolation (features
+# and positions) and 2 per GuideCRFConv (the radius mask's positions and
+# the similarity's guidance), 4 decoders each; each decoder's fused core
+# builds its operator once (K9) and iterates 10 times (K10)
+SCANNET_PER_REQUEST = {
+    "windowed_gather": 10 + 4 * 2 + 4 * 2,
+    "window_knn": 10,
+    "point_conv_fused_infer": 0,
+    "crf_similarity_message": 0,
+    "windowed_weighted_reduce": 0,
+    "windowed_gather_bwd": 0,
+    "crf_operator": 4,
+    "crf_iterate": 4 * 10,
+    "crf_iterate_bwd": 0,
+    "crf_neighbor_dot": 0,
+}
+# per ScanNet train step: the forward's, and in the backward K8 for every
+# gather whose source needs a gradient (not the 4 + 4 gathers of
+# positions), 10 reverse steps (K11) and one neighbour dot (K12) per core
+SCANNET_PER_STEP = {
+    **SCANNET_PER_REQUEST,
+    "windowed_gather_bwd": 10 + 4 + 4,
+    "crf_iterate_bwd": 4 * 10,
+    "crf_neighbor_dot": 4,
 }
 REPLACES = {
     "windowed_gather": "crfconv_tpu/ops/windowed_pallas.py:448",
@@ -87,9 +135,29 @@ REPLACES = {
     "crf_similarity_message": "crfconv_tpu/ops/crf_sim_pallas.py:146",
     "windowed_weighted_reduce": "crfconv_tpu/ops/windowed_pallas.py:842",
     "windowed_gather_bwd": "crfconv_tpu/ops/windowed_pallas.py:372",
+    "crf_operator": "crfconv_tpu/ops/crf_pallas.py:149",
+    "crf_iterate": "crfconv_tpu/ops/crf_pallas.py:278",
+    "crf_iterate_bwd": "crfconv_tpu/ops/crf_pallas.py:403",
+    "crf_neighbor_dot": "crfconv_tpu/ops/crf_pallas.py:1147",
 }
 
 FAILURES = []
+# largest fraction of its rounding bound that a kernel (and its plain
+# version) reached, over the calls of one phase: {kernel: [kernel, plain]}
+OF_BOUND = {}
+# launches of each kernel in each main path: {kernel: {path: count}}
+LAUNCHES = {name: {} for name in REPLACES}
+
+
+def record_launches(path: str, counts: dict, expected: dict, units: int,
+                    unit: str) -> None:
+    """Check one main path's launch counts against ``expected`` per
+    ``unit`` and keep them."""
+    for name, per in expected.items():
+        expect(counts[name] == per * units,
+               f"{path}: {counts[name]} launches of {name} in {units} "
+               f"{unit}, expected {per * units}")
+        LAUNCHES[name][path] = counts[name]
 
 
 def expect(cond: bool, what: str) -> None:
@@ -180,13 +248,25 @@ def train_call_sites():
     }
 
 
-def record_calls(sites, run):
-    """Run ``run()`` and return every call each kernel wrapper received."""
+def record_calls(sites, run, snapshot=()):
+    """Run ``run()`` and return every call each kernel wrapper received.
+    For the kernels named in ``snapshot``, whose inputs are buffers that
+    the caller overwrites later (the CRF core's ping-pong states), the
+    tensors are copied as they were and the output buffers dropped, so a
+    replay computes the recorded call into fresh outputs."""
     calls = {name: [] for name in sites}
 
     def recorder(name, fn):
         def rec(*args, **kwargs):
-            calls[name].append((args, kwargs))
+            if name in snapshot:
+                calls[name].append((
+                    tuple(a.clone() if isinstance(a, torch.Tensor) else a
+                          for a in args),
+                    {k: v for k, v in kwargs.items()
+                     if k not in ("out", "dmsg_out")},
+                ))
+            else:
+                calls[name].append((args, kwargs))
             return fn(*args, **kwargs)
         return rec
 
@@ -226,6 +306,20 @@ def bound_of(name, args, out):
         ops = 2 * args[1].numel()          # a multiply and an add per u
     elif name == "windowed_gather_bwd":
         ops = args[0].numel()              # an add per element of g
+    elif name == "crf_operator":
+        ops = 0                            # a clamp per index
+    elif name in ("crf_iterate", "crf_iterate_bwd"):
+        x, s_ = args[0], args[2]
+        b, n, h = x.shape
+        k = s_.shape[2]
+        # the message (2 K H a row) and the apply (2 H^2); the backward
+        # adds the scatter (2 K H), dM (2 H^2) and dzp (H)
+        per_row = 2 * k * h + 2 * h * h
+        ops = b * n * (per_row if name == "crf_iterate"
+                       else 2 * per_row + h)
+    elif name == "crf_neighbor_dot":
+        t, b, n, h = args[1].shape
+        ops = 2 * t * b * n * args[2].shape[2] * h
     else:  # crf_similarity_message
         y, idx = args[0], args[2]
         b, n, h = y.shape
@@ -265,13 +359,74 @@ def compare(name, args, got, ref):
         expect(torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1]),
                "windowed_weighted_reduce: out or xg not bit-equal")
     if name == "windowed_gather_bwd":
-        # f32 atomics add each row's terms in another order than index_add_:
-        # the rounding scales with the magnitudes summed into the row, which
-        # a fixed atol cannot see at the gradients' scale (~1e-5 and below)
+        # f32 atomics add each row's terms in no fixed order. Any order (or
+        # tree) of the n adds into a row lies within g sum|term| of the
+        # exact sum, g = (n - 1) u / (1 - (n - 1) u) with u = 2^-24, plus
+        # 2^-126 an add that atom.add.f32 flushes when subnormal; the kernel
+        # (and, for comparison, the plain version) is held to that around
+        # the sum taken in float64. A row of two terms can reach 1 - u of it
         from crfconv_tpu_torch.ops.windowed import windowed_gather_bwd_plain
-        mass = windowed_gather_bwd_plain(args[0].abs(), *args[1:])
-        ok = bool(((got - ref).abs() <= 1e-5 * ref.abs() + 1e-6 * mass).all())
-        expect(ok, "windowed_gather_bwd: outside 1e-5 |ref| + 1e-6 mass")
+        g, rest = args[0].double(), args[1:]
+        exact = windowed_gather_bwd_plain(g, *rest)
+        mass = windowed_gather_bwd_plain(g.abs(), *rest)
+        terms = windowed_gather_bwd_plain(torch.ones_like(g[..., :1]), *rest)
+        nu = (terms - 1).clamp(min=0) * 2.0 ** -24
+        bound = (nu / (1 - nu) * mass
+                 + torch.finfo(torch.float32).tiny * terms)
+        frac = [float(((t.double() - exact).abs() / bound).nan_to_num(0.0)
+                      .max()) for t in (got, ref)]
+        OF_BOUND[name] = [max(a, b) for a, b in
+                          zip(OF_BOUND.get(name, frac), frac)]
+        expect(frac[0] <= 1.0, "windowed_gather_bwd: outside the rounding "
+               f"bound of the exact sum ({frac[0]:.7g} of it)")
+    if name in ("crf_operator", "crf_iterate"):
+        # one clamp; one sum order (k, then h ascending), no fused
+        # multiply-add, as the plain version adds
+        expect(torch.equal(got, ref), f"{name}: not bit-equal")
+        return float((got - ref).abs().max()) if got.numel() else 0.0
+    if name == "crf_iterate_bwd":
+        from crfconv_tpu_torch.ops.crf_core import (
+            _message, crf_iterate_bwd_plain,
+        )
+        lam, x, s_, col, m = args[:5]
+        # dmsg (one order, as the plain version) and dzp + lam: bit-equal
+        expect(torch.equal(got[1], ref[1]) and torch.equal(got[2], ref[2]),
+               "crf_iterate_bwd: dmsg or dzp not bit-equal")
+        # lam_t: f32 atomics in another order than index_add_; the
+        # rounding scales with the magnitudes summed into each row. Both
+        # add with atom.add.f32, which flushes subnormal inputs and results
+        # to zero: each of a row's adds may lose up to 2^-126 in another
+        # order (the similarity's far slots are subnormal)
+        mass = crf_iterate_bwd_plain(lam.abs(), x, s_, col, m.abs(),
+                                     *args[5:7])[0]
+        terms = crf_iterate_bwd_plain(   # adds into each row
+            torch.ones_like(lam[..., :1]), torch.zeros_like(x[..., :1]),
+            torch.ones_like(s_), col, torch.ones_like(m[:1, :1]),
+            torch.zeros_like(lam[..., :1]), torch.zeros_like(m[:1, :1]))[0]
+        tiny = torch.finfo(torch.float32).tiny
+        expect(bool(((got[0] - ref[0]).abs()
+                     <= 1e-5 * ref[0].abs() + 1e-6 * mass
+                     + 2 * tiny * terms).all()),
+               "crf_iterate_bwd: lam outside 1e-5 |ref| + 1e-6 mass + "
+               "2 * 2^-126 per add")
+        # dM: block sums and atomics into the running sum against one
+        # product over every row added to it (B*N terms, 131072 at deconv1:
+        # float32 rounding grows with their count in either order, at the
+        # scale of the running sum and of the products)
+        h = lam.shape[-1]
+        dm_mass = args[6].abs() + (_message(x.abs(), s_, col).reshape(-1, h).T
+                                   @ lam.abs().reshape(-1, h))
+        expect(bool(((got[3] - ref[3]).abs() <= 1e-4 * dm_mass
+                     + 1e-6 * float(dm_mass.max())).all()),
+               "crf_iterate_bwd: dM outside 1e-4 of its mass")
+        return max(float((a - r).abs().max()) for a, r in zip(got, ref))
+    if name == "crf_neighbor_dot":
+        from crfconv_tpu_torch.ops.crf_core import crf_neighbor_dot_plain
+        mass = crf_neighbor_dot_plain(args[0].abs(), args[1].abs(), args[2])
+        expect(bool(((got - ref).abs() <= 1e-5 * mass
+                     + 1e-6 * float(mass.max())).all()),
+               "crf_neighbor_dot: outside 1e-5 of its mass")
+        return float((got - ref).abs().max())
     # K3, K4: float32 sums in another order than the plain matmuls and
     # sums; K8 also within the bound above
     err = 0.0
@@ -319,6 +474,7 @@ def kernel_phase(name, kernel, plain, calls):
         b_ms, b_by = bound_of(name, args, got)
         bound_ms += b_ms
         by_ops[b_by] += b_ms
+    of_bound = OF_BOUND.pop(name, None)
     ms = median_ms(lambda: [kernel(*a, **k) for a, k in calls])
     plain_ms = median_ms(lambda: [plain(*a, **k) for a, k in calls])
     libs = [library_call(name, a) for a, _ in calls]
@@ -339,6 +495,7 @@ def kernel_phase(name, kernel, plain, calls):
         "bound_by": max(by_ops, key=by_ops.get),
         "library_ms": library_ms,
         "calls": len(calls),
+        "of_bound": of_bound,
     }
 
 
@@ -353,15 +510,11 @@ def kernel_source(name):
 # --------------------------------------------------------------------------
 
 
-def make_model(device):
-    from crfconv_tpu_torch import PointConvResNet
+def randomize_batch_norms(model, gen: torch.Generator):
+    """Non-trivial batch-norm statistics and affine terms, from ``gen``."""
     from crfconv_tpu_torch.models.common import MaskedBatchNorm
 
-    gen = torch.Generator().manual_seed(SEED)
-    model = PointConvResNet(
-        N_CLASSES, C_IN, use_crf=True, steps=1, device=device, generator=gen,
-    )
-    with torch.no_grad():   # non-trivial batch-norm statistics
+    with torch.no_grad():
         for m in model.modules():
             if isinstance(m, MaskedBatchNorm):
                 f = m.mean.numel()
@@ -370,6 +523,16 @@ def make_model(device):
                 m.scale.copy_(0.8 + 0.4 * torch.rand(f, generator=gen))
                 m.bias.copy_(0.1 * torch.randn(f, generator=gen))
     return model.eval()
+
+
+def make_model(device):
+    from crfconv_tpu_torch import PointConvResNet
+
+    gen = torch.Generator().manual_seed(SEED)
+    model = PointConvResNet(
+        N_CLASSES, C_IN, use_crf=True, steps=1, device=device, generator=gen,
+    )
+    return randomize_batch_norms(model, gen)
 
 
 def request(rng, device):
@@ -399,6 +562,21 @@ def profile_device(fn, path):
     rows.sort(key=lambda r: -r[1])
     p.export_chrome_trace(path)
     return rows
+
+
+def profile_phase(label: str, fn, path: str, unit: str, unit_ms: float):
+    """Profile one call of ``fn`` (one ``unit`` of ``unit_ms``): prints the
+    device's busy time, idle share and top kernels; returns (rows, busy
+    ms). A pass that records no device time fails the run."""
+    rows = profile_device(fn, path)
+    expect(bool(rows), f"{label}: no device time recorded")
+    busy = sum(r[1] for r in rows)
+    print(f"# {label}: {sum(r[2] for r in rows)} kernel launches, busy "
+          f"{busy:.3f} ms in one {unit} of {unit_ms:.3f} ms (idle share "
+          f"{1 - busy / unit_ms:.3f}); top:", flush=True)
+    for key, ms, cnt in rows[:12]:
+        print(f"#   {ms:9.4f} ms  x{cnt:<4d} {key[:90]}", flush=True)
+    return rows, busy
 
 
 # --------------------------------------------------------------------------
@@ -435,7 +613,7 @@ def snapshot(model) -> dict:
     return {n: t.detach().clone() for n, t in model.state_dict().items()}
 
 
-def step_phases_ms(state, raw, gen):
+def step_phases_ms(state, raw, gen, label_offset: int = 0):
     """One train step in make_train_step's order, with a synchronize after
     each phase: host ms of (pyramid, forward + loss, backward, optimizer).
     The confusion matrix, a few small kernels, is left out."""
@@ -455,7 +633,7 @@ def step_phases_ms(state, raw, gen):
     batch = build_windowed_batch(raw, gen, mode=TRAIN_MODE)
     mark()
     out = state.model(batch, TRAIN_MODE, dropout_generator=gen)
-    loss = segmentation_loss(out, batch.y)
+    loss = segmentation_loss(out, batch.y - label_offset)
     mark()
     state.optimizer.zero_grad(set_to_none=True)
     loss.backward()
@@ -487,17 +665,35 @@ def grad_gap(model_a, model_b):
     return worst, name, g_max
 
 
+def run_phases(results: dict, path: str, sites, calls) -> None:
+    """Kernel phases on one main path's recorded calls: every kernel of
+    ``sites`` that the path called is held against its plain version and
+    timed; the phase joins the kernel's list in ``results``."""
+    for name, (_, _, kernel, plain) in sites.items():
+        if not calls[name]:
+            continue
+        with torch.inference_mode():
+            r = kernel_phase(name, kernel, plain, calls[name])
+        r["path"] = path
+        results.setdefault(name, []).append(r)
+        print_phase(r)
+
+
 def print_phase(r) -> None:
-    print(f"# {r['name']}: {r['calls']} calls, kernel {r['ms']:.4f} ms, "
+    print(f"# {r['name']} ({r['path']}): {r['calls']} calls, kernel "
+          f"{r['ms']:.4f} ms, "
           f"plain {r['plain_ms']:.4f} ms, bound {r['bound_ms'] * 1e3:.2f} us "
           f"({r['bound_by']}), library {r['library_ms']}, max_abs_err "
-          f"{r['max_abs_err']:.3g} (max |plain| {r['max_abs_ref']:.3g})",
-          flush=True)
+          f"{r['max_abs_err']:.3g} (max |plain| {r['max_abs_ref']:.3g})"
+          + ("" if r["of_bound"] is None else
+             f", of rounding bound: kernel {r['of_bound'][0]:.7g}, plain "
+             f"{r['of_bound'][1]:.7g}"), flush=True)
 
 
 def train_phases(dev, rng, out_dir: str, results: dict) -> dict:
-    """Phases 6-9: adds the K7 and K8 rows to ``results`` and each kernel's
-    launches in the train main path; returns the train measurements."""
+    """Phases 6-9: adds the train step's kernel phases to ``results`` and
+    each kernel's launches in the train main path; returns the train
+    measurements."""
     from crfconv_tpu_torch import (
         CheckpointManager, cuda_build, make_eval_step, make_train_step,
     )
@@ -521,11 +717,7 @@ def train_phases(dev, rng, out_dir: str, results: dict) -> dict:
         per = EXPECTED_PER_STEP[name]
         expect(len(got) == per,
                f"train {name}: {len(got)} calls per step, expected {per}")
-    for name in ("windowed_weighted_reduce", "windowed_gather_bwd"):
-        _, _, kernel, plain = sites[name]
-        with torch.inference_mode():
-            results[name] = kernel_phase(name, kernel, plain, calls[name])
-        print_phase(results[name])
+    run_phases(results, "flagship train", sites, calls)
     del calls
 
     # 7. main path: TRAIN_STEPS steps
@@ -550,12 +742,8 @@ def train_phases(dev, rng, out_dir: str, results: dict) -> dict:
         expect(tuple(m["confusion"].shape) == (N_CLASSES, N_CLASSES)
                and int(m["confusion"].sum()) == B * N,
                f"train step {i}: confusion matrix does not count {B * N}")
-    counts = cuda_build.launch_counts()
-    for name, per in EXPECTED_PER_STEP.items():
-        expect(counts[name] == per * TRAIN_STEPS,
-               f"train {name}: {counts[name]} launches in {TRAIN_STEPS} "
-               f"steps, expected {per * TRAIN_STEPS}")
-        results[name]["launches_train"] = counts[name]
+    record_launches("flagship train", cuda_build.launch_counts(),
+                    EXPECTED_PER_STEP, TRAIN_STEPS, "steps")
     after = snapshot(state.model)
     still = [n for n in params if torch.equal(before[n], after[n])]
     expect(not still, f"parameters that did not move: {still[:4]}")
@@ -577,21 +765,10 @@ def train_phases(dev, rng, out_dir: str, results: dict) -> dict:
           f"phases pyramid {split[0]:.3f}, forward+loss {split[1]:.3f}, "
           f"backward {split[2]:.3f}, optimizer {split[3]:.3f} ms (host "
           f"clock with a synchronize after each, median of 5)", flush=True)
-    profile_rows, busy_ms = [], None
-    try:
-        profile_rows = profile_device(
-            lambda: train_step(state, raws[0], gen),
-            os.path.join(out_dir, "chip_smoke_train_trace.json"),
-        )
-        busy_ms = sum(r[1] for r in profile_rows)
-        print(f"# train profiler: {sum(r[2] for r in profile_rows)} kernel "
-              f"launches, busy {busy_ms:.3f} ms in one step of "
-              f"{step_ms:.3f} ms (idle share {1 - busy_ms / step_ms:.3f}); "
-              f"top:", flush=True)
-        for key, ms, cnt in profile_rows[:12]:
-            print(f"#   {ms:9.4f} ms  x{cnt:<4d} {key[:90]}", flush=True)
-    except Exception as e:  # measurement extra: report and go on
-        print(f"# train profiler unavailable: {e!r}", flush=True)
+    profile_rows, busy_ms = profile_phase(
+        "train profiler", lambda: train_step(state, raws[0], gen),
+        os.path.join(out_dir, "chip_smoke_train_trace.json"), "step", step_ms,
+    )
 
     # 8. one state, one pyramid, one dropout seed: kernels vs plain
     # versions, and a second kernel step for K8's run-to-run spread. The
@@ -699,6 +876,365 @@ def train_phases(dev, rng, out_dir: str, results: dict) -> dict:
     }
 
 
+# --------------------------------------------------------------------------
+# ScanNet: CRFSegNet(steps=10), the continuous CRF's fused core
+# --------------------------------------------------------------------------
+
+
+def scannet_config():
+    from crfconv_tpu_torch.train.config import ScanNetConfig
+
+    return ScanNetConfig()
+
+
+def scannet_model(cfg, device, seed: int = SEED):
+    from crfconv_tpu_torch import CRFSegNet
+
+    return CRFSegNet(cfg.num_classes, cfg.in_channels, steps=cfg.steps,
+                     device=device,
+                     generator=torch.Generator().manual_seed(seed))
+
+
+def scannet_state(cfg, device, seed: int = SEED):
+    """A fresh TrainState with ScanNet's optimizer settings."""
+    from crfconv_tpu_torch import TrainState
+
+    return TrainState.create(
+        scannet_model(cfg, device, seed), lr=cfg.lr, momentum=cfg.momentum,
+        weight_decay=cfg.weight_decay, gamma=cfg.gamma,
+    )
+
+
+def scannet_cloud(cfg, rng, device, labels: bool = False):
+    """A batch of B16 x 8192 random clouds; with ``labels``, a RawBatch
+    whose labels are 0 (unlabeled, ignored after the offset) to 20."""
+    from crfconv_tpu_torch import RawBatch
+
+    b, n = cfg.batch_size, cfg.sample_num
+    pos = torch.as_tensor(rng.random((b, n, 3), dtype=np.float32),
+                          device=device)
+    feats = torch.as_tensor(
+        rng.random((b, n, cfg.in_channels), dtype=np.float32), device=device)
+    if not labels:
+        return pos, feats
+    y = torch.as_tensor(rng.integers(0, cfg.num_classes + 1, (b, n)),
+                        device=device)
+    return RawBatch(pos=pos, x=feats, y=y)
+
+
+def crf_call_sites():
+    """As :func:`call_sites`, for the CRF core's kernels, reached from its
+    autograd Function."""
+    from crfconv_tpu_torch.ops import crf_core
+
+    return {
+        name: (crf_core, name, getattr(crf_core, name),
+               getattr(crf_core, name + "_plain"))
+        for name in ("crf_operator", "crf_iterate", "crf_iterate_bwd",
+                     "crf_neighbor_dot")
+    }
+
+
+def scannet_plain_pairs():
+    """The ScanNet model's kernels replaced by their plain versions at their
+    call sites: K1 (so K8 becomes autograd's) and the whole fused CRF core
+    (so K9-K12 become autograd through the plain K9/K10)."""
+    from crfconv_tpu_torch.ops import crf, crf_core, neighbors, windowed
+
+    return [(neighbors, "windowed_gather", windowed.windowed_gather_plain),
+            (crf, "crf_core", crf_core.crf_core_plain)]
+
+
+def scannet_phases(dev, rng, out_dir: str, results: dict) -> dict:
+    """Phases 10-13: adds the ScanNet request's and step's kernel phases to
+    ``results`` and the ScanNet main paths' launches; returns the ScanNet
+    measurements."""
+    from crfconv_tpu_torch import Predictor, cuda_build, make_train_step
+    from crfconv_tpu_torch.data.batch import PointBatch
+    from crfconv_tpu_torch.ops.windowed import build_pyramid_windowed
+    from crfconv_tpu_torch.serve import SERVING_MODE
+    from crfconv_tpu_torch.train.train_state import (
+        TRAIN_MODE, build_windowed_batch,
+    )
+
+    cfg = scannet_config()
+    b, n, n_cls = cfg.batch_size, cfg.sample_num, cfg.num_classes
+    gen = torch.Generator().manual_seed(SEED + 7)
+    model = randomize_batch_norms(scannet_model(cfg, dev), gen)
+    with torch.no_grad():   # compatibilities away from the identity
+        for name, p in model.named_parameters():
+            if name.endswith(".c"):
+                p.add_(0.1 * torch.randn(p.shape, generator=gen).to(dev))
+    predictor = Predictor(model, device=dev, seed=SEED)
+    crf_sites = crf_call_sites()
+
+    # 10. warm-up request and warm-up train step, recording every kernel
+    # call of each; every kernel held against its plain version on them
+    serve_sites = {k: v for k, v in call_sites().items()
+                   if k in ("windowed_gather", "window_knn")}
+    serve_sites.update((k, crf_sites[k]) for k in ("crf_operator",
+                                                   "crf_iterate"))
+    pos, feats = scannet_cloud(cfg, rng, dev)
+    calls = record_calls(serve_sites,
+                         lambda: predictor.predict_logits(pos, feats),
+                         snapshot=tuple(crf_sites))
+    torch.cuda.synchronize()
+    for name, got in calls.items():
+        per = SCANNET_PER_REQUEST[name]
+        expect(len(got) == per,
+               f"scannet {name}: {len(got)} calls per request, expected {per}")
+    run_phases(results, "scannet serve", serve_sites, calls)
+    del calls
+
+    train_step = make_train_step(TRAIN_MODE, ignore_index=cfg.ignore_index,
+                                 label_offset=cfg.label_offset)
+    state = scannet_state(cfg, dev)
+    raws = [scannet_cloud(cfg, rng, dev, labels=True)
+            for _ in range(TRAIN_STEPS)]
+    train_sites = {**train_call_sites(), **crf_sites}
+    calls = record_calls(
+        train_sites, lambda: train_step(state, raws[0], step_generator(dev, 0)),
+        snapshot=tuple(crf_sites),
+    )
+    torch.cuda.synchronize()
+    for name, got in calls.items():
+        per = SCANNET_PER_STEP[name]
+        expect(len(got) == per,
+               f"scannet {name}: {len(got)} calls per step, expected {per}")
+    run_phases(results, "scannet train", train_sites, calls)
+    del calls
+    torch.cuda.empty_cache()
+
+    # 11. serving main path
+    reqs = [scannet_cloud(cfg, rng, dev) for _ in range(SCANNET_REQUESTS)]
+    torch.cuda.synchronize()
+    cuda_build.reset_launch_counts()
+    lat, outs = [], []
+    for p_, f_ in reqs:
+        t0 = time.perf_counter()
+        logp = predictor.predict_logits(p_, f_)
+        torch.cuda.synchronize()
+        lat.append(time.perf_counter() - t0)
+        outs.append(logp)
+    record_launches("scannet serve", cuda_build.launch_counts(),
+                    SCANNET_PER_REQUEST, SCANNET_REQUESTS, "requests")
+    for logp in outs:
+        expect(tuple(logp.shape) == (b, n, n_cls),
+               f"scannet log-probs shape {tuple(logp.shape)}")
+        expect(bool(torch.isfinite(logp).all()), "scannet: non-finite output")
+        norm = float((torch.logsumexp(logp, -1)).abs().max())
+        expect(norm <= 1e-4, f"scannet: log-probs off normal by {norm}")
+        labels = logp.argmax(-1)
+        expect(bool(((labels >= 0) & (labels < n_cls)).all()),
+               f"scannet: labels outside [0, {n_cls})")
+    del outs
+    pts_s = SCANNET_REQUESTS * b * n / sum(lat)
+    print(f"# scannet: served {SCANNET_REQUESTS} requests of {b}x{n}: "
+          f"{[round(t * 1e3, 3) for t in lat]} ms, {pts_s:.1f} points/s",
+          flush=True)
+
+    p_, f_ = reqs[0]
+
+    def pyramid():
+        return build_pyramid_windowed(
+            p_, generator=torch.Generator(device=dev).manual_seed(SEED),
+            knn_exact=SERVING_MODE.knn_exact, device=dev,
+        )
+
+    order, scales = pyramid()
+    batch = PointBatch(x=torch.take_along_dim(f_, order[..., None], dim=1),
+                       y=None, scales=scales)
+    with torch.inference_mode():
+        pyramid_ms = median_ms(pyramid, runs=5)
+        forward_ms = median_ms(lambda: model(batch, SERVING_MODE), runs=5)
+        request_ms = median_ms(lambda: predictor.predict_logits(p_, f_),
+                               runs=5)
+        got = model(batch, SERVING_MODE)
+        with patched(scannet_plain_pairs()):
+            ref = model(batch, SERVING_MODE)
+            plain_forward_ms = median_ms(lambda: model(batch, SERVING_MODE),
+                                         runs=3, warmup=1)
+    torch.cuda.synchronize()
+    d_logp = float((got - ref).abs().max())
+    scale = float(ref.abs().max())
+    fwd_bit_equal = bool(torch.equal(got, ref))
+    agree = float((got.argmax(-1) == ref.argmax(-1)).float().mean())
+    # K1, K9 and K10 are bit-equal to their plain versions and the rest of
+    # the forward is the same torch code: expected bit-equal; the limit
+    # leaves room for last-bit differences only
+    expect(d_logp <= 1e-5 * max(1.0, scale),
+           f"scannet kernel vs plain forward: max |dlogp| {d_logp}")
+    expect(agree >= 0.999, f"scannet argmax agreement {agree}")
+    print(f"# scannet forward kernels vs plain: max |dlogp| {d_logp:.3g} "
+          f"(max |logp| {scale:.3g}), bit-equal {fwd_bit_equal}, argmax "
+          f"agreement {agree}", flush=True)
+    print(f"# scannet one request: {request_ms:.3f} ms (pyramid "
+          f"{pyramid_ms:.3f} ms, forward {forward_ms:.3f} ms; plain-version "
+          f"forward {plain_forward_ms:.3f} ms)", flush=True)
+    del got, ref
+    with torch.inference_mode():
+        serve_profile, serve_busy = profile_phase(
+            "scannet profiler", lambda: predictor.predict_logits(p_, f_),
+            os.path.join(out_dir, "chip_smoke_scannet_trace.json"),
+            "request", request_ms,
+        )
+    del predictor, reqs
+    torch.cuda.empty_cache()
+
+    # 12. train main path
+    params = dict(state.model.named_parameters())
+    before = snapshot(state.model)
+    gens = [step_generator(dev, 1 + i) for i in range(TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    cuda_build.reset_launch_counts()
+    step_s, losses = [], []
+    for i, raw in enumerate(raws):
+        t0 = time.perf_counter()
+        m = train_step(state, raw, gens[i])
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        losses.append(float(m["loss"]))
+        expect(np.isfinite(losses[-1]), f"scannet step {i}: loss {losses[-1]}")
+        bad = [nm for nm, p in params.items()
+               if p.grad is None or not bool(torch.isfinite(p.grad).all())
+               or not bool(p.grad.any())]
+        expect(not bad, f"scannet step {i}: no, non-finite or all-zero "
+               f"gradient {bad[:4]}")
+        labelled = int((raw.y >= cfg.label_offset).sum())
+        expect(tuple(m["confusion"].shape) == (n_cls, n_cls)
+               and int(m["confusion"].sum()) == labelled,
+               f"scannet step {i}: confusion matrix does not count the "
+               f"{labelled} labelled points")
+    record_launches("scannet train", cuda_build.launch_counts(),
+                    SCANNET_PER_STEP, TRAIN_STEPS, "steps")
+    c_grads = {nm: float(p.grad.abs().max()) for nm, p in params.items()
+               if nm.endswith(".c")}
+    expect(len(c_grads) == 4 and all(v > 0 for v in c_grads.values()),
+           f"scannet: CRF compatibility gradients {c_grads}")
+    after = snapshot(state.model)
+    still = [nm for nm in params if torch.equal(before[nm], after[nm])]
+    expect(not still, f"scannet parameters that did not move: {still[:4]}")
+    stats = [nm for nm in before if nm not in params]
+    same = [nm for nm in stats if torch.equal(before[nm], after[nm])]
+    expect(stats and not same,
+           f"scannet running statistics unchanged: {same[:4]}")
+    train_pts_s = TRAIN_STEPS * b * n / sum(step_s)
+    print(f"# scannet: trained {TRAIN_STEPS} steps of {b}x{n}: "
+          f"{[round(t * 1e3, 3) for t in step_s]} ms, {train_pts_s:.1f} "
+          f"points/s, loss {[round(v, 5) for v in losses]}", flush=True)
+
+    gen_t = step_generator(dev, 50)
+    step_ms = median_ms(lambda: train_step(state, raws[0], gen_t), runs=3,
+                        warmup=1)
+    split = np.median([step_phases_ms(state, raws[0], gen_t, cfg.label_offset)
+                       for _ in range(3)], axis=0)
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"# scannet one train step: {step_ms:.3f} ms (events, median of "
+          f"3); phases pyramid {split[0]:.3f}, forward+loss {split[1]:.3f}, "
+          f"backward {split[2]:.3f}, optimizer {split[3]:.3f} ms; peak "
+          f"memory so far {peak_gb:.2f} GiB", flush=True)
+    train_profile, train_busy = profile_phase(
+        "scannet train profiler", lambda: train_step(state, raws[0], gen_t),
+        os.path.join(out_dir, "chip_smoke_scannet_train_trace.json"), "step",
+        step_ms,
+    )
+    del state
+    torch.cuda.empty_cache()
+
+    # 13. one state, one pyramid: kernels vs plain versions, and a second
+    # kernel step for the atomics' run-to-run spread (K8, K11)
+    batch = build_windowed_batch(raws[0], step_generator(dev, 100),
+                                 mode=TRAIN_MODE)
+    pb_step = make_train_step(TRAIN_MODE, ignore_index=cfg.ignore_index,
+                              label_offset=cfg.label_offset, windowed=False)
+    sk, sk2, sp = (scannet_state(cfg, dev) for _ in range(3))
+    cuda_build.reset_launch_counts()
+    mk = pb_step(sk, batch)
+    k_counts = cuda_build.launch_counts()
+    pb_step(sk2, batch)
+    cuda_build.reset_launch_counts()
+    with patched(scannet_plain_pairs()):
+        mp = pb_step(sp, batch)
+    p_counts = cuda_build.launch_counts()
+    torch.cuda.synchronize()
+    for name, per in SCANNET_PER_STEP.items():
+        if name != "window_knn":   # the pyramid is built
+            expect(k_counts[name] == per,
+                   f"scannet kernel step: {k_counts[name]} launches of "
+                   f"{name}, expected {per}")
+    expect(not any(p_counts.values()), f"scannet plain step launched "
+           f"{p_counts}")
+    # the forward is bit-equal (K1, K9, K10), so the loss is; the backward
+    # differs by the order of K8's and K11's atomics and K12's sums
+    loss_k, loss_p = float(mk["loss"]), float(mp["loss"])
+    expect(loss_k == loss_p, f"scannet kernel vs plain step: loss {loss_k} "
+           f"vs {loss_p}")
+    d_grad, worst, g_max = grad_gap(sk.model, sp.model)
+    expect(d_grad <= 1.0, f"scannet kernel vs plain step: gradient of "
+           f"{worst} at {d_grad:.3g} of its tolerance")
+    d_rerun, worst_rerun, _ = grad_gap(sk.model, sk2.model)
+    expect(d_rerun <= 1.0, f"scannet kernel step rerun: gradient of "
+           f"{worst_rerun} at {d_rerun:.3g} of its tolerance")
+    rerun_bit_equal = all(
+        torch.equal(p.grad, q.grad)
+        for p, q in zip(sk.model.parameters(), sk2.model.parameters())
+    )
+    a_sd, b_sd = snapshot(sk.model), snapshot(sp.model)
+    pnames = {nm for nm, _ in sk.model.named_parameters()}
+    off = [nm for nm in b_sd if not torch.allclose(
+        a_sd[nm], b_sd[nm], rtol=1e-3, atol=5e-5 if nm in pnames else 1e-5)]
+    expect(not off, f"scannet kernel vs plain step: outside rtol 1e-3 "
+           f"{off[:4]}")
+    del sk2
+    kernel_step_ms = median_ms(lambda: pb_step(sk, batch), runs=3, warmup=1)
+    with patched(scannet_plain_pairs()):
+        plain_step_ms = median_ms(lambda: pb_step(sp, batch), runs=3,
+                                  warmup=1)
+    print(f"# scannet train step kernels vs plain (one pyramid): loss "
+          f"{loss_k} vs {loss_p}, worst gradient {worst} at {d_grad:.3g} of "
+          f"its tolerance (largest |grad| {g_max:.3g}); kernel step rerun: "
+          f"gradients bit-equal {rerun_bit_equal}, worst {worst_rerun} at "
+          f"{d_rerun:.3g}; step on a built pyramid {kernel_step_ms:.3f} ms, "
+          f"plain versions {plain_step_ms:.3f} ms", flush=True)
+    return {
+        "config": {"model": cfg.model_name, "batch": b, "points": n,
+                   "classes": n_cls, "steps": cfg.steps,
+                   "label_offset": cfg.label_offset},
+        "requests_ms": [t * 1e3 for t in lat],
+        "points_per_s": pts_s,
+        "request_ms": request_ms,
+        "pyramid_ms": pyramid_ms,
+        "forward_ms": forward_ms,
+        "plain_forward_ms": plain_forward_ms,
+        "max_abs_dlogp": d_logp,
+        "forward_bit_equal": fwd_bit_equal,
+        "argmax_agreement": agree,
+        "kernel_busy_ms": serve_busy,
+        "profile": serve_profile[:40],
+        "train_steps_ms": [t * 1e3 for t in step_s],
+        "train_points_per_s": train_pts_s,
+        "train_losses": losses,
+        "train_step_ms": step_ms,
+        "train_phases_ms": dict(zip(
+            ("pyramid", "forward_loss", "backward", "optimizer"),
+            map(float, split),
+        )),
+        "train_peak_gib": peak_gb,
+        "train_kernel_busy_ms": train_busy,
+        "train_profile": train_profile[:40],
+        "c_grad_max": c_grads,
+        "kernel_vs_plain_step": {
+            "loss": [loss_k, loss_p], "grad_of_tolerance": d_grad,
+            "grad_worst": worst, "grad_max": g_max,
+            "rerun_grad_of_tolerance": d_rerun,
+            "rerun_grads_bit_equal": rerun_bit_equal,
+            "kernel_step_ms": kernel_step_ms, "plain_step_ms": plain_step_ms,
+        },
+        "calls_per_request": SCANNET_PER_REQUEST,
+        "calls_per_step": SCANNET_PER_STEP,
+    }
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("FAIL: torch.cuda.is_available() is false", file=sys.stderr)
@@ -736,16 +1272,14 @@ def main() -> int:
     pos, feats = request(rng, dev)
     calls = record_calls(sites, lambda: predictor.predict_logits(pos, feats))
     torch.cuda.synchronize()
-    for name, per in EXPECTED_PER_REQUEST.items():
-        expect(len(calls[name]) == per,
-               f"{name}: {len(calls[name])} calls per request, expected {per}")
+    for name, got in calls.items():
+        per = EXPECTED_PER_REQUEST[name]
+        expect(len(got) == per,
+               f"{name}: {len(got)} calls per request, expected {per}")
 
-    # kernel phases
+    # kernel phases: {kernel: [one phase per main path that calls it]}
     results = {}
-    for name, (_, _, kernel, plain) in sites.items():
-        with torch.inference_mode():
-            results[name] = kernel_phase(name, kernel, plain, calls[name])
-        print_phase(results[name])
+    run_phases(results, "flagship serve", sites, calls)
 
     # K2 in exact selection mode on the same recorded calls (the main path
     # selects with packed keys)
@@ -770,11 +1304,8 @@ def main() -> int:
         torch.cuda.synchronize()
         lat.append(time.perf_counter() - t0)
         outs.append(logits)
-    serve_counts = cuda_build.launch_counts()
-    for name, per in EXPECTED_PER_REQUEST.items():
-        expect(serve_counts[name] == per * REQUESTS,
-               f"{name}: {serve_counts[name]} launches in {REQUESTS} "
-               f"requests, expected {per * REQUESTS}")
+    record_launches("flagship serve", cuda_build.launch_counts(),
+                    EXPECTED_PER_REQUEST, REQUESTS, "requests")
     for logits in outs:
         expect(tuple(logits.shape) == (B, N, N_CLASSES),
                f"logits shape {tuple(logits.shape)}")
@@ -830,32 +1361,37 @@ def main() -> int:
           f"forward {forward_ms:.3f} ms; plain-version forward "
           f"{plain_forward_ms:.3f} ms)", flush=True)
 
-    profile_rows, busy_ms = [], None
-    try:
-        with torch.inference_mode():
-            profile_rows = profile_device(
-                lambda: predictor.predict_logits(p_, f_),
-                os.path.join(out_dir, "chip_smoke_trace.json"),
-            )
-        busy_ms = sum(r[1] for r in profile_rows)
-        n_launch = sum(r[2] for r in profile_rows)
-        print(f"# profiler: {n_launch} kernel launches, busy {busy_ms:.3f} ms "
-              f"in one request of {request_ms:.3f} ms (idle share "
-              f"{1 - busy_ms / request_ms:.3f}); top:", flush=True)
-        for key, ms, cnt in profile_rows[:12]:
-            print(f"#   {ms:9.4f} ms  x{cnt:<4d} {key[:90]}", flush=True)
-    except Exception as e:  # measurement extra: report and go on
-        print(f"# profiler unavailable: {e!r}", flush=True)
+    with torch.inference_mode():
+        profile_rows, busy_ms = profile_phase(
+            "profiler", lambda: predictor.predict_logits(p_, f_),
+            os.path.join(out_dir, "chip_smoke_trace.json"), "request",
+            request_ms,
+        )
 
     train = train_phases(dev, rng, out_dir, results)
+    torch.cuda.empty_cache()
+    scannet = scannet_phases(dev, rng, out_dir, results)
 
-    # launches: the serving main path's and the train main path's
+    # launches: the sum over the four main paths (flagship serve and train,
+    # ScanNet serve and train). The times are those of the first path whose
+    # calls were held against the plain version; every path's are in
+    # "phases", and max_abs_err is the largest over them
     kernels = []
     for name in REPLACES:
-        r = dict(results[name])
-        r["launches_serve"] = serve_counts[name]
-        r["launches"] = r["launches_serve"] + r["launches_train"]
-        r["calls_per_run"] = r.pop("calls")
+        phases = results[name]
+        r = {k: v for k, v in phases[0].items()
+             if k not in ("path", "calls", "max_abs_ref", "of_bound")}
+        r["max_abs_err"] = max(p["max_abs_err"] for p in phases)
+        r["launches"] = sum(LAUNCHES[name].values())
+        r["launches_by_path"] = LAUNCHES[name]
+        r["timed_on"] = phases[0]["path"]
+        r["calls_per_run"] = phases[0]["calls"]
+        r["phases"] = [
+            {k: p[k] for k in ("path", "calls", "max_abs_err", "max_abs_ref",
+                               "ms", "plain_ms", "bound_ms", "bound_by",
+                               "library_ms", "of_bound")}
+            for p in phases
+        ]
         kernels.append(r)
     summary = {
         "device": torch.cuda.get_device_name(0),
@@ -873,6 +1409,7 @@ def main() -> int:
         "kernel_busy_ms": busy_ms,
         "profile": profile_rows[:40],
         **train,
+        "scannet": scannet,
         "failures": FAILURES,
     }
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as fh:

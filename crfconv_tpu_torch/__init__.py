@@ -1,14 +1,17 @@
 """crfconv_tpu_torch: the PyTorch/CUDA port of crfconv_tpu.
 
-The flagship continuous-CRF point-convolution U-Net served and trained on
-an NVIDIA H100, with the windowed regime's kernels written by hand in CUDA
-C++ (``csrc/``, built on first use by ``cuda_build``). On CPU tensors every
-kernel wrapper runs its plain PyTorch version.
+The flagship continuous-CRF point-convolution U-Net and the small
+family's ``CRFSegNet`` (continuous CRF at any number of mean-field steps)
+served and trained on an NVIDIA H100, with the windowed regime's kernels
+written by hand in CUDA C++ (``csrc/``, built on first use by
+``cuda_build``). On CPU tensors every kernel wrapper runs its plain
+PyTorch version.
 """
 
 from crfconv_tpu_torch.convert import from_flax
 from crfconv_tpu_torch.data.batch import RawBatch
 from crfconv_tpu_torch.models.point_conv_big import PointConvResNet
+from crfconv_tpu_torch.models.segnets import BaselineSegNet, CRFSegNet
 from crfconv_tpu_torch.ops.neighbors import NeighborMode
 from crfconv_tpu_torch.ops.windowed import build_pyramid_windowed
 from crfconv_tpu_torch.serve import Predictor
@@ -18,6 +21,8 @@ from crfconv_tpu_torch.train.train_state import (
 )
 
 __all__ = [
+    "BaselineSegNet",
+    "CRFSegNet",
     "CheckpointManager",
     "NeighborMode",
     "PointConvResNet",

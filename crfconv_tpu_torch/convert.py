@@ -1,4 +1,5 @@
-"""Weight bridge: a flax ``PointConvResNet`` variable tree onto the port.
+"""Weight bridge: a flax variable tree (``PointConvResNet``, ``CRFSegNet``,
+``BaselineSegNet``) onto the port's model of the same name.
 
 The port's module names are the flax names, so the mapping is structural:
 
@@ -6,7 +7,8 @@ The port's module names are the flax names, so the mapping is structural:
     (and ``Dense_0/bias`` -> ``<path>.bias`` where present);
   * ``<path>/MaskedBatchNorm_0/{scale,bias}`` and the batch statistics
     ``{mean,var}`` -> ``<path>.bn.{scale,bias,mean,var}``;
-  * a bare Dense (``classifier_1``) ``kernel``/``bias`` -> ``weight``/``bias``;
+  * a bare Dense (``classifier_1``, ``classifier/fc1``) ``kernel``/``bias``
+    -> ``weight``/``bias``;
   * any other leaf (the CRF compatibility ``c``) is copied as it is.
 """
 
@@ -24,7 +26,7 @@ def _t(a) -> torch.Tensor:
 
 def from_flax(params: Mapping, batch_stats: Mapping) -> dict:
     """flax ``params`` and ``batch_stats`` trees (numpy arrays) -> a state
-    dict for ``PointConvResNet.load_state_dict``."""
+    dict for the port's model's ``load_state_dict``."""
     out = {}
 
     def walk(p: Mapping, stats: Mapping, prefix: str) -> None:

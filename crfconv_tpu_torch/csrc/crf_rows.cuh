@@ -1,0 +1,54 @@
+// Row blocking and the message S~ x shared by the CRF iterate kernels (K10
+// forward, K11 backward).
+//
+// A block of THREADS threads owns R = groups * RT consecutive rows of the
+// flattened [B*N, H] state. For the H x H products each thread owns one
+// column c of RT rows (columns c, c + cols, ... when H > THREADS), so that
+// one load of M serves RT rows; the threads of a group are the columns.
+#pragma once
+
+#include <cuda_runtime.h>
+
+constexpr int CRF_THREADS = 256;
+constexpr int CRF_RT = 8;  // rows per thread in an H x H product
+
+struct CrfRows {
+  int cols;    // threads per row group (<= CRF_THREADS)
+  int groups;  // row groups per block
+  int rows;    // rows per block, groups * CRF_RT
+};
+
+__host__ __device__ inline CrfRows crf_rows(int h) {
+  CrfRows g;
+  g.cols = h < CRF_THREADS ? h : CRF_THREADS;
+  g.groups = CRF_THREADS / g.cols;
+  g.rows = g.groups * CRF_RT;
+  return g;
+}
+
+// msg[r * h + c] = sum_j s[m, j] * x[b, col[m, j], c] for the block's rows
+// m = row0 + r (zero beyond the last row), j ascending from zero, each
+// product and sum rounded on its own; slots with col < 0 add nothing (their
+// row reads zero). c is fastest across threads, so a row of x is read in
+// full sectors.
+__device__ __forceinline__ void crf_message(
+    const float* __restrict__ x, const float* __restrict__ s,
+    const int* __restrict__ col, float* msg, long long row0, int r_count,
+    long long rows, int n, int k, int h) {
+  for (int e = threadIdx.x; e < r_count * h; e += blockDim.x) {
+    const int r = e / h;
+    const int c = e - r * h;
+    const long long m = row0 + r;
+    float acc = 0.0f;
+    if (m < rows) {
+      const float* xb = x + (m / n) * n * (long long)h + c;
+      const int* cm = col + m * k;
+      const float* sm = s + m * k;
+      for (int j = 0; j < k; ++j) {
+        const int cj = cm[j];
+        if (cj >= 0) acc = __fadd_rn(acc, __fmul_rn(sm[j], xb[(long long)cj * h]));
+      }
+    }
+    msg[e] = acc;
+  }
+}

@@ -31,7 +31,7 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
 )
-HEADERS = ("window.cuh",)
+HEADERS = ("window.cuh", "crf_rows.cuh")
 
 NOTHING_LAUNCHED = -1   # an entry point's code for an empty problem
 _P = ctypes.c_void_p
@@ -125,9 +125,26 @@ WINDOWED_GATHER_BWD = Kernel(
     "windowed_gather_bwd", "windowed_gather_bwd.cu", "windowed_gather_bwd_f32",
     [_P] * 4 + [_I] * 8 + [_P],
 )
+CRF_OPERATOR = Kernel(
+    "crf_operator", "crf_operator.cu", "crf_operator_i32",
+    [_P] * 3 + [_I] * 6 + [_P],
+)
+CRF_ITERATE = Kernel(
+    "crf_iterate", "crf_iterate.cu", "crf_iterate_f32",
+    [_P] * 6 + [_I] * 4 + [_P],
+)
+CRF_ITERATE_BWD = Kernel(
+    "crf_iterate_bwd", "crf_iterate_bwd.cu", "crf_iterate_bwd_f32",
+    [_P] * 10 + [_I] * 4 + [_P],
+)
+CRF_NEIGHBOR_DOT = Kernel(
+    "crf_neighbor_dot", "crf_neighbor_dot.cu", "crf_neighbor_dot_f32",
+    [_P] * 4 + [_I] * 5 + [_P],
+)
 KERNELS = (
     WINDOWED_GATHER, WINDOW_KNN, POINT_CONV_FUSED_INFER,
     CRF_SIMILARITY_MESSAGE, WINDOWED_WEIGHTED_REDUCE, WINDOWED_GATHER_BWD,
+    CRF_OPERATOR, CRF_ITERATE, CRF_ITERATE_BWD, CRF_NEIGHBOR_DOT,
 )
 
 

@@ -1,10 +1,12 @@
-"""Continuous Gaussian CRF decoder block.
+"""Continuous Gaussian CRF decoder blocks.
 
-Counterpart of ``crfconv_tpu/models/crf_conv.py::ContinuousCRFConv``: unary
-MLP on coarse features, pairwise MLP on skip features, 1-NN upsample,
-Gaussian similarity over the K spatial neighbours, the mean-field loop
-with C = c^T c, then an output MLP and concat-fusion with the skip
-features.
+Counterparts of ``crfconv_tpu/models/crf_conv.py``. ``ContinuousCRFConv``
+(the flagship's): unary MLP on coarse features, pairwise MLP on skip
+features, 1-NN upsample, Gaussian similarity over the K spatial
+neighbours, the mean-field loop with C = c^T c, then an output MLP and
+concat-fusion with the skip features. ``GuideCRFConv`` (the small
+family's): linear + batch-norm unary and pairwise heads, the similarity
+with a radius mask, the same loop, a leaky-ReLU output.
 """
 
 from __future__ import annotations
@@ -12,7 +14,7 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 
-from crfconv_tpu_torch.models.common import MLP, leaky_relu01
+from crfconv_tpu_torch.models.common import MLP, leaky_relu001, leaky_relu01
 from crfconv_tpu_torch.ops.crf import crf_mean_field, gaussian_similarity
 from crfconv_tpu_torch.ops.crf_sim import crf_similarity_message, sim_eligible
 from crfconv_tpu_torch.ops.neighbors import (
@@ -75,3 +77,41 @@ class ContinuousCRFConv(nn.Module):
 
         x = self.out_nn(x)
         return self.fusion_nn(torch.cat([x, pairwise], dim=-1))
+
+
+class GuideCRFConv(nn.Module):
+    """The small family's continuous CRF on kNN indices, with neighbours
+    farther than ``radius`` masked out of the similarity softmax (the
+    reference's radius graph). The point-validity mask of the JAX block
+    (padded clouds) is not ported."""
+
+    def __init__(
+        self, unary_features: int, pairwise_features: int,
+        out_features: int, steps: int, radius: float, device=None,
+    ):
+        super().__init__()
+        self.steps = steps
+        self.radius = radius
+        self.unary = MLP(unary_features, out_features, None, device=device)
+        self.pairwise = MLP(pairwise_features, out_features, leaky_relu001,
+                            device=device)
+        self.c = nn.Parameter(torch.eye(out_features, device=device))
+
+    def forward(
+        self,
+        x: torch.Tensor,             # [B, N, F_x] features to refine
+        y: torch.Tensor,             # [B, N, F_y] guidance features
+        pos: torch.Tensor,           # [B, N, 3]
+        neighbor_idx: torch.Tensor,  # [B, N, K] self-inclusive kNN
+        mode: NeighborMode,
+    ) -> torch.Tensor:
+        nidx = remove_self_loop(neighbor_idx)
+        xh = self.unary(x)
+        yh = self.pairwise(y)
+        npos = gather_neighbors(pos, nidx, mode)
+        d2 = (pos[:, :, None, :] - npos).square().sum(dim=-1)
+        nmask = d2 <= self.radius * self.radius
+        s = gaussian_similarity(yh, nidx, mode, mask=nmask)
+        return leaky_relu001(
+            crf_mean_field(xh, s, nidx, self.c, self.steps, mode)
+        )

@@ -5,12 +5,13 @@ Gaussian similarity s over K neighbours, iterate
 
     x <- (z + (S x) C)(I + C)^-1,   C = c^T c.
 
-Only the scan form is here, differentiable by autograd. On the GPU the
-model runs at steps=1, where the first message comes from the fused
-similarity kernel (``msg0``, serving) or from the gathered neighbours
-(``neighbors0``, training) and no iteration is left; steps >= 2 there
-needs the fused CRF iterate kernels, which come with a later slice of the
-port (ROADMAP.md, slice 4).
+In the windowed regime at steps >= 2 :func:`crf_mean_field` runs the fused
+core (``ops/crf_core.py``: kernels K9-K12 on CUDA tensors, their plain
+versions on CPU tensors), as the JAX package dispatches to its fused Pallas
+kernels; every other case runs the scan here, differentiable by autograd.
+At steps = 1 the first message comes from the fused similarity kernel
+(``msg0``, serving) or from the gathered neighbours (``neighbors0``), and
+no iteration is left.
 """
 
 from __future__ import annotations
@@ -19,30 +20,26 @@ from typing import Optional
 
 import torch
 
-from crfconv_tpu_torch.ops.neighbors import NeighborMode, gather_neighbors
+from crfconv_tpu_torch.ops.crf_core import compat_products, crf_core
+from crfconv_tpu_torch.ops.neighbors import (
+    NeighborMode, gather_neighbors, masked_softmax,
+)
 
 
 def gaussian_similarity(
     y: torch.Tensor,
     neighbor_idx: torch.Tensor,
     mode: NeighborMode,
+    mask: Optional[torch.Tensor] = None,
     neighbors: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """softmax_K(-|y_i - y_j|^2): y [B, N, H], neighbor_idx [B, N, K]
-    (self removed) -> [B, N, K]."""
+    (self removed), optional validity mask [B, N, K] -> [B, N, K]; masked
+    slots get 0, a fully masked row is all zeros."""
     if neighbors is None:
         neighbors = gather_neighbors(y, neighbor_idx, mode)
     d = y[:, :, None, :] - neighbors
-    return torch.softmax(-(d * d).sum(dim=-1), dim=2)
-
-
-def _spd_inverse(m: torch.Tensor) -> torch.Tensor:
-    """Inverse of a small SPD matrix via Cholesky, in at least float32."""
-    m = m.to(torch.promote_types(m.dtype, torch.float32))
-    chol = torch.linalg.cholesky_ex(m).L
-    eye = torch.eye(m.shape[-1], dtype=m.dtype, device=m.device)
-    inv_l = torch.linalg.solve_triangular(chol, eye, upper=False)
-    return inv_l.T @ inv_l
+    return masked_softmax(-(d * d).sum(dim=-1), mask, dim=2)
 
 
 def crf_mean_field(
@@ -59,16 +56,16 @@ def crf_mean_field(
 
     ``neighbors0`` ([B, N, K, H]) are the pre-gathered neighbours of z;
     ``msg0`` ([B, N, H]) is the pre-reduced first message sum_k s_k z_j.
-    Either saves the first step's gather.
+    Either saves the scan's first gather. The fused core (windowed, steps
+    >= 2) recomputes every message from (s, idx) and ignores both, as the
+    JAX package's fused path does.
     """
-    if z.is_cuda and steps >= 2:
-        raise NotImplementedError(
-            "CRF steps >= 2 on the GPU needs the fused CRF iterate kernels "
-            "(crf_pallas), which come with slice 4 of the port"
-        )
-    h = z.shape[-1]
-    C = c.T @ c
-    inv = _spd_inverse(torch.eye(h, dtype=C.dtype, device=C.device) + C)
+    if mode.windowed and steps >= 2:
+        _, inv, M = compat_products(c)
+        zp = z @ inv.to(z.dtype)
+        return crf_core(z, zp, s, neighbor_idx, M.to(z.dtype), steps,
+                        mode.tile, mode.pad)
+    C, inv, _ = compat_products(c)
     C = C.to(z.dtype)
     inv = inv.to(z.dtype)
 

@@ -76,3 +76,22 @@ def remove_self_loop(neighbor_idx: torch.Tensor) -> torch.Tensor:
     """Drop neighbour column 0 (the query itself); contiguous, as the
     kernels take it."""
     return neighbor_idx[:, :, 1:].contiguous()
+
+
+def knn_interpolate(
+    x: torch.Tensor,
+    pos_src: torch.Tensor,
+    pos_dst: torch.Tensor,
+    up_idx: torch.Tensor,
+    mode: NeighborMode,
+    eps: float = 1e-8,
+) -> torch.Tensor:
+    """Inverse-squared-distance weighted k-NN interpolation, coarse to fine:
+    x [B, S, F], pos_src [B, S, 3], pos_dst [B, N, 3], up_idx [B, N, k]
+    (the k nearest coarse points) -> [B, N, F]."""
+    nx = gather_neighbors(x, up_idx, mode)                 # [B, N, k, F]
+    npos = gather_neighbors(pos_src, up_idx, mode)         # [B, N, k, 3]
+    d2 = (pos_dst[:, :, None, :] - npos).square().sum(dim=-1)
+    w = 1.0 / torch.clamp(d2, min=eps)
+    w = w / w.sum(dim=-1, keepdim=True)
+    return torch.einsum("bnk,bnkf->bnf", w, nx)

@@ -24,8 +24,10 @@ class Predictor:
     """Windowed inference runner for one device.
 
     Args:
-      model:  a ``PointConvResNet`` (any module taking (PointBatch, mode)).
-              It is moved to ``device`` and put in eval mode.
+      model:  a ``PointConvResNet`` or ``CRFSegNet`` (any module taking
+              (PointBatch, mode) and returning per-point class scores:
+              logits, or log-probabilities for the small family). It is
+              moved to ``device`` and put in eval mode.
       mode:   window geometry and kNN selection; the regime is always
               windowed.
       device: where the pyramid and the forward run.
@@ -47,7 +49,8 @@ class Predictor:
         self, pos, feats, offsets: Optional[Sequence] = None,
     ) -> torch.Tensor:
         """[B, N, 3] positions + [B, N, C_in] features -> [B, N, n_classes]
-        logits in the input point order. ``offsets`` injects the per-scale
+        scores (the model's output: logits or log-probabilities) in the
+        input point order. ``offsets`` injects the per-scale
         subsampling offsets instead of drawing them."""
         pos = torch.as_tensor(pos, dtype=torch.float32, device=self.device)
         feats = torch.as_tensor(feats, dtype=torch.float32, device=self.device)

@@ -129,12 +129,15 @@ def make_train_step(
     class_weights: Optional[torch.Tensor] = None,
     ignore_index: int = -1,
     windowed: bool = True,
+    label_offset: int = 0,
 ):
     """The train step: pyramid (windowed) -> train-mode forward -> weighted
     CE -> backward -> SGD step -> confusion matrix.
 
     With ``windowed`` the step takes a RawBatch and builds its pyramid,
-    else a PointBatch whose pyramid is built.
+    else a PointBatch whose pyramid is built. ``label_offset`` is
+    subtracted from the labels before the loss and the confusion matrix
+    (the reference's ``y - 1`` for datasets whose label 0 is unlabeled).
     """
 
     def train_step(
@@ -149,8 +152,9 @@ def make_train_step(
         model.train()
         if windowed:
             batch = build_windowed_batch(batch, generator, offsets, mode)
+        labels = batch.y - label_offset
         outputs = model(batch, mode, dropout_generator=generator)
-        loss = segmentation_loss(outputs, batch.y, class_weights, ignore_index)
+        loss = segmentation_loss(outputs, labels, class_weights, ignore_index)
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
         state.optimizer.step()
@@ -158,7 +162,7 @@ def make_train_step(
         state.step += 1
         primary = _head(outputs, 0).detach()
         confusion = confusion_matrix_device(
-            batch.y, primary.argmax(dim=-1), primary.shape[-1], ignore_index
+            labels, primary.argmax(dim=-1), primary.shape[-1], ignore_index
         )
         return {"loss": loss.detach(), "confusion": confusion}
 
@@ -169,9 +173,10 @@ def make_eval_step(
     mode: NeighborMode = TRAIN_MODE,
     class_weights: Optional[torch.Tensor] = None,
     ignore_index: int = -1,
+    label_offset: int = 0,
 ):
     """The single-view eval step on a RawBatch (the 2-view ensemble is not
-    ported)."""
+    ported); ``label_offset`` as in :func:`make_train_step`."""
 
     @torch.no_grad()
     def eval_step(
@@ -189,15 +194,16 @@ def make_eval_step(
                 device=batch.pos.device
             ).manual_seed(state.step)
         batch = build_windowed_batch(batch, generator, offsets, mode)
+        labels = batch.y - label_offset
         outputs = model(batch, mode)
         primary = _head(outputs, -1)
         preds = primary.argmax(dim=-1)
         return {
             "loss": segmentation_loss(
-                outputs, batch.y, class_weights, ignore_index
+                outputs, labels, class_weights, ignore_index
             ),
             "confusion": confusion_matrix_device(
-                batch.y, preds, primary.shape[-1], ignore_index
+                labels, preds, primary.shape[-1], ignore_index
             ),
             "probs": torch.softmax(primary, dim=-1),
             "preds": preds,

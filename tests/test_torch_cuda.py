@@ -1,10 +1,11 @@
-"""The six CUDA kernels against their plain versions on the card, at edge
+"""The ten CUDA kernels against their plain versions on the card, at edge
 shapes the main path does not reach: ragged tiles, indices outside their
 window (clamped rows that read zero), every template width of K3/K4, tiny
-clouds whose windows are mostly sentinel rows, and K > 16; the backward of
-the two autograd Functions (K1/K8, K7/K8) against autograd through the
-plain versions; and the kernels without a backward refusing to drop a
-gradient.
+clouds whose windows are mostly sentinel rows, and K > 16; the CRF core's
+kernels (K9-K12) at widths 8 to 256, B = 1, N = 1, 63, 65, duplicated
+indices and all-masked rows; the backward of the three autograd Functions
+(K1/K8, K7/K8, the CRF core K9-K12) against autograd through the plain
+versions; and the kernels without a backward refusing to drop a gradient.
 
 Needs an NVIDIA GPU and nvcc; skipped otherwise. On the card run
 
@@ -20,7 +21,7 @@ import numpy as np
 import pytest
 import torch
 
-from crfconv_tpu_torch.ops import conv, crf_sim, windowed
+from crfconv_tpu_torch.ops import conv, crf_core, crf_sim, windowed
 
 pytestmark = pytest.mark.cuda
 
@@ -231,3 +232,113 @@ def test_wrappers_check_arguments(dev):
                                  idx.int())
     with pytest.raises(ValueError):
         windowed.windowed_gather(x, idx.int().cpu())
+
+
+def _crf_inputs(rng, b, n, h, k, spread, dev, masked=True):
+    """State, unary term, similarity (row-stochastic, with a masked slot, an
+    all-masked row and subnormal weights, as the main path's far slots
+    have), indices with duplicates and out-of-window slots, and M."""
+    x = torch.randn(b, n, h, device=dev)
+    zp = torch.randn(b, n, h, device=dev)
+    s = torch.softmax(torch.randn(b, n, k, device=dev), dim=-1)
+    s[:, ::3, k // 2] *= 1e-39
+    if masked:
+        s[:, :, min(2, k - 1)] = 0.0
+        s[:, n // 2] = 0.0
+    idx = _idx(rng, b, n, n, k, spread, dev)
+    idx[:, :, 0] = idx[:, :, -1]                  # duplicated columns
+    m = 0.5 * torch.randn(h, h, device=dev) / h ** 0.5
+    return x, zp, s.contiguous(), idx.contiguous(), m
+
+
+CRF_SHAPES = [   # (b, n, h, k, spread)
+    (1, 1, 8, 4, 4), (2, 63, 8, 15, 40), (1, 65, 32, 15, 300),
+    (2, 1000, 32, 15, 300), (1, 700, 64, 9, 90), (2, 300, 128, 15, 60),
+    (1, 257, 256, 15, 90), (1, 100, 20, 31, 60), (1, 90, 18, 40, 60),
+]
+
+
+@pytest.mark.parametrize("b,n,h,k,spread", CRF_SHAPES)
+def test_crf_operator_and_iterate_match_plain(dev, b, n, h, k, spread):
+    rng = np.random.default_rng(10)
+    x, zp, s, idx, m = _crf_inputs(rng, b, n, h, k, spread, dev)
+    col = crf_core.crf_operator(idx)
+    assert torch.equal(col, crf_core.crf_operator_plain(idx))
+    got = crf_core.crf_iterate(x, zp, s, col, m)
+    # one sum order (k, then h ascending), no fused multiply-add: bit-equal
+    assert torch.equal(got, crf_core.crf_iterate_plain(x, zp, s, col, m))
+    assert torch.equal(got[:, n // 2], zp[:, n // 2])   # all-masked row
+
+
+@pytest.mark.parametrize("b,n,h,k,spread", CRF_SHAPES)
+def test_crf_iterate_bwd_and_neighbor_dot_match_plain(dev, b, n, h, k, spread):
+    rng = np.random.default_rng(11)
+    x, lam, s, idx, m = _crf_inputs(rng, b, n, h, k, spread, dev)
+    col = crf_core.crf_operator(idx)
+    dzp = torch.randn(b, n, h, device=dev)
+    dM = torch.randn(h, h, device=dev)
+    got = crf_core.crf_iterate_bwd(lam, x, s, col, m, dzp, dM)
+    ref = crf_core.crf_iterate_bwd_plain(lam, x, s, col, m, dzp, dM)
+    assert torch.equal(got[1], ref[1])        # dmsg: the plain version's order
+    assert torch.equal(got[2], ref[2])        # dzp + lam
+    # lam_t: f32 atomics in another order than index_add_; the rounding
+    # scales with the magnitudes summed into the row, and both flush
+    # subnormal inputs and results of each add to zero (atom.add.f32)
+    mass = crf_core.crf_iterate_bwd_plain(lam.abs(), x, s, col, m.abs(),
+                                          dzp, dM)[0]
+    terms = crf_core.crf_iterate_bwd_plain(
+        torch.ones(b, n, 1, device=dev), torch.zeros(b, n, 1, device=dev),
+        torch.ones_like(s), col, torch.ones(1, 1, device=dev),
+        torch.zeros(b, n, 1, device=dev), torch.zeros(1, 1, device=dev))[0]
+    tiny = torch.finfo(torch.float32).tiny
+    assert bool(((got[0] - ref[0]).abs() <= 1e-5 * ref[0].abs() + 1e-6 * mass
+                 + 2 * tiny * terms).all())
+    # dM: a sum over every row, in blocks, then atomics into the running sum
+    scale = float((dM.abs() + crf_core._message(x.abs(), s, col).reshape(-1, h).T
+                   @ lam.abs().reshape(-1, h)).max())
+    assert float((got[3] - ref[3]).abs().max()) <= 1e-5 * scale + 1e-6
+    steps = 3
+    dmsgs = torch.randn(steps, b, n, h, device=dev)
+    xs = torch.randn(steps, b, n, h, device=dev)
+    ds = crf_core.crf_neighbor_dot(dmsgs, xs, col)
+    ds_ref = crf_core.crf_neighbor_dot_plain(dmsgs, xs, col)
+    ds_mass = crf_core.crf_neighbor_dot_plain(dmsgs.abs(), xs.abs(), col)
+    assert bool(((ds - ds_ref).abs() <= 1e-5 * ds_mass + 1e-6).all())
+    assert bool((ds[col < 0] == 0).all())
+
+
+@pytest.mark.parametrize("b,n,h,k,spread,steps", [
+    (1, 65, 8, 15, 300, 3), (2, 1000, 32, 15, 90, 10), (1, 300, 256, 15, 60, 4),
+])
+def test_crf_core_backward_matches_plain_autograd(dev, b, n, h, k, spread,
+                                                  steps):
+    """The Function (K9, K10 forward; K11, K12 backward) against autograd
+    through the plain versions, from a non-contiguous output gradient."""
+    rng = np.random.default_rng(12)
+    z, zp, s, idx, m = _crf_inputs(rng, b, n, h, k, spread, dev)
+    ts = [t.clone().requires_grad_() for t in (z, zp, s, m)]
+    w = torch.randn(b, h, n, device=dev)
+    out = crf_core.crf_core(ts[0], ts[1], ts[2], idx, ts[3], steps)
+    got = torch.autograd.grad((out.transpose(1, 2) * w).sum(), ts)
+    out_ref = crf_core.crf_core_plain(ts[0], ts[1], ts[2], idx, ts[3], steps)
+    assert torch.equal(out, out_ref)          # the forward is bit-equal
+    ref = torch.autograd.grad((out_ref.transpose(1, 2) * w).sum(), ts)
+    for name, a, r in zip(("dz", "dzp", "ds", "dM"), got, ref):
+        # atomics and the neighbour dot sum in another order; errors grow
+        # through the steps with the operator's norm
+        torch.testing.assert_close(a, r, rtol=1e-4,
+                                   atol=1e-5 * float(r.abs().max()),
+                                   msg=name)
+
+
+def test_crf_kernels_raise_under_grad(dev):
+    rng = np.random.default_rng(13)
+    x, zp, s, idx, m = _crf_inputs(rng, 1, 128, 8, 7, 40, dev)
+    col = crf_core.crf_operator(idx)
+    with pytest.raises(RuntimeError, match="no backward"):
+        crf_core.crf_iterate(x.requires_grad_(), zp, s, col, m)
+    with pytest.raises(ValueError):   # never in place
+        crf_core.crf_iterate(zp, zp, s, col, m, out=zp)
+    with pytest.raises(ValueError):   # stacks of two lengths
+        crf_core.crf_neighbor_dot(torch.zeros(2, 1, 128, 8, device=dev),
+                                  torch.zeros(1, 1, 128, 8, device=dev), col)

@@ -19,7 +19,7 @@ from crfconv_tpu.ops import crf as jcrf
 from crfconv_tpu.ops import morton as jmorton
 from crfconv_tpu.ops import neighbors as jnb
 from crfconv_tpu.ops import windowed as jwin
-from crfconv_tpu_torch.ops import crf, morton, neighbors, windowed
+from crfconv_tpu_torch.ops import crf, crf_core, morton, neighbors, windowed
 from crfconv_tpu_torch.ops.neighbors import NeighborMode
 
 REPO = Path(__file__).resolve().parents[1]
@@ -300,7 +300,7 @@ def test_pyramid_generator_and_curve_rot():
 def test_spd_inverse_matches():
     a = _rng(11).standard_normal((8, 8)).astype(np.float32)
     m = np.eye(8, dtype=np.float32) + a.T @ a
-    got = crf._spd_inverse(_t(m)).numpy()
+    got = crf_core.spd_inverse(_t(m)).numpy()
     ref = np.asarray(jcrf._spd_inverse(jnp.asarray(m)))
     np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-6)
 
