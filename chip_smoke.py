@@ -46,6 +46,20 @@
 13. A ScanNet train step with the kernels against one through the plain
     versions differentiated by autograd, from one state and pyramid, as in
     8, and a second kernel step for the atomics' run-to-run spread.
+14. ScanNet-discrete (BaselineDiscreteCRFSegNet(20 classes, steps=10), B16 x
+    8192, label_offset 1): a warm-up request (pyramid, forward, the last
+    head log q, as the JAX package serves a two-head model) and a warm-up
+    train step, recording every kernel call of each (K1, K2, K9, K13 in the
+    request; K1, K2, K8, K9, K12, K13, K14 in the step), each held against
+    its plain version and timed as in 3; DISCRETE_REQUESTS requests and
+    TRAIN_STEPS steps with exact launch counts, checked as in 11-12; a
+    forward and a train step with the kernels against the plain versions,
+    as in 13; profiles and peak memory.
+15. Semantic3D serving (Semantic3DConfig: PointConvResNet(8 classes,
+    use_crf, steps=1), B16 x 65536): a recorded warm-up request whose K1-K5
+    calls are held against the plain versions; SEMANTIC3D_REQUESTS requests
+    through Predictor with exact launch counts (K5 on conv2_1 and
+    conv3_1); a kernel-vs-plain forward; a profile and peak memory.
 
 Prints the card's name and power limit, one JSON line of kernel results
 and, last, {"ok": true, "device": {...}}. Exits non-zero, without that
@@ -83,6 +97,7 @@ EXPECTED_PER_REQUEST = {
     "window_knn": 10,
     "point_conv_fused_infer": 2,
     "crf_similarity_message": 1,
+    "point_conv_fused_strided": 0,   # conv2_1 has 2048 < 4096 rows
     "crf_operator": 0,          # steps = 1: no fused CRF core
     "crf_iterate": 0,
 }
@@ -128,6 +143,57 @@ SCANNET_PER_STEP = {
     "crf_iterate_bwd": 4 * 10,
     "crf_neighbor_dot": 4,
 }
+DISCRETE_REQUESTS = 3
+# launches per B16 x 8192 ScanNet-discrete request with
+# BaselineDiscreteCRFSegNet(steps=10): K1 is the encoder's 10 gathers, 2 per
+# k-NN interpolation (4 decoders) and the discrete CRF's 2 (the kernel
+# embeddings, F = 5 x 64, and the radius mask's positions); K2 the pyramid's
+# 10 searches and the CRF's kNN(32); its fused core builds the operator once
+# (K9) and iterates 10 times (K13)
+DISCRETE_PER_REQUEST = {
+    "windowed_gather": 10 + 4 * 2 + 2,
+    "window_knn": 10 + 1,
+    "point_conv_fused_infer": 0,
+    "crf_similarity_message": 0,
+    "point_conv_fused_strided": 0,
+    "windowed_weighted_reduce": 0,
+    "windowed_gather_bwd": 0,
+    "crf_operator": 1,
+    "crf_iterate": 0,
+    "crf_iterate_bwd": 0,
+    "crf_neighbor_dot": 0,
+    "discrete_iterate": 10,
+    "discrete_iterate_bwd": 0,
+}
+# per ScanNet-discrete train step: the forward's, and in the backward K8 for
+# every gather whose source needs a gradient (not the 4 + 1 of positions),
+# 10 reverse steps (K14) and one neighbour dot (K12)
+DISCRETE_PER_STEP = {
+    **DISCRETE_PER_REQUEST,
+    "windowed_gather_bwd": 10 + 4 + 1,
+    "discrete_iterate_bwd": 10,
+    "crf_neighbor_dot": 1,
+}
+SEMANTIC3D_REQUESTS = 3
+# launches per B16 x 65536 Semantic3D request: every eval PointConv with at
+# least 4096 output rows and hidden width <= 32 runs fused, the same-scale
+# conv1_1, conv1_2, conv2_2, conv3_2 (K3) and the strided conv2_1 and
+# conv3_1 with their residual riders (K5); so does the CRF's similarity and
+# first message (K4) of deconv1, deconv2 and deconv3 (hidden 8, 16, 32 on
+# 65536, 16384, 4096 rows); K1 takes the other 4 convs' gathers, deconv4's
+# CRF gather and the 4 upsamplings
+SEMANTIC3D_PER_REQUEST = {
+    "windowed_gather": 4 + 1 + 4,
+    "window_knn": 10,
+    "point_conv_fused_infer": 4,
+    "crf_similarity_message": 3,
+    "point_conv_fused_strided": 2,
+    "windowed_weighted_reduce": 0,
+    "windowed_gather_bwd": 0,
+    "crf_operator": 0,
+    "crf_iterate": 0,
+    "discrete_iterate": 0,
+}
 REPLACES = {
     "windowed_gather": "crfconv_tpu/ops/windowed_pallas.py:448",
     "window_knn": "crfconv_tpu/ops/windowed_pallas.py:684",
@@ -139,9 +205,14 @@ REPLACES = {
     "crf_iterate": "crfconv_tpu/ops/crf_pallas.py:278",
     "crf_iterate_bwd": "crfconv_tpu/ops/crf_pallas.py:403",
     "crf_neighbor_dot": "crfconv_tpu/ops/crf_pallas.py:1147",
+    "point_conv_fused_strided": "crfconv_tpu/ops/conv_pallas.py:258",
+    "discrete_iterate": "crfconv_tpu/ops/crf_pallas.py:690",
+    "discrete_iterate_bwd": "crfconv_tpu/ops/crf_pallas.py:1383",
 }
 
 FAILURES = []
+# kernels whose every replayed call was bit-equal to the plain version
+BIT_EQUAL = {}
 # largest fraction of its rounding bound that a kernel (and its plain
 # version) reached, over the calls of one phase: {kernel: [kernel, plain]}
 OF_BOUND = {}
@@ -249,29 +320,33 @@ def train_call_sites():
 
 
 def record_calls(sites, run, snapshot=()):
-    """Run ``run()`` and return every call each kernel wrapper received.
+    """Run ``run()`` and return every call each kernel wrapper received
+    (through the site's attribute, whatever the phase replays it with).
     For the kernels named in ``snapshot``, whose inputs are buffers that
-    the caller overwrites later (the CRF core's ping-pong states), the
+    the caller overwrites later (the CRF cores' ping-pong states), the
     tensors are copied as they were and the output buffers dropped, so a
-    replay computes the recorded call into fresh outputs."""
+    replay computes the recorded call into fresh outputs; a K13 call that
+    saved its message replays with ``with_msg``."""
     calls = {name: [] for name in sites}
 
     def recorder(name, fn):
         def rec(*args, **kwargs):
             if name in snapshot:
+                kw = {k: v for k, v in kwargs.items()
+                      if k not in ("out", "dmsg_out", "msg_out")}
+                if kwargs.get("msg_out") is not None:
+                    kw["with_msg"] = True   # K13 saving the message
                 calls[name].append((
                     tuple(a.clone() if isinstance(a, torch.Tensor) else a
-                          for a in args),
-                    {k: v for k, v in kwargs.items()
-                     if k not in ("out", "dmsg_out")},
+                          for a in args), kw,
                 ))
             else:
                 calls[name].append((args, kwargs))
             return fn(*args, **kwargs)
         return rec
 
-    with patched([(m, a, recorder(name, k))
-                  for name, (m, a, k, _) in sites.items()]):
+    with patched([(m, a, recorder(name, getattr(m, a)))
+                  for name, (m, a, _, _) in sites.items()]):
         run()
     return calls
 
@@ -320,6 +395,21 @@ def bound_of(name, args, out):
     elif name == "crf_neighbor_dot":
         t, b, n, h = args[1].shape
         ops = 2 * t * b * n * args[2].shape[2] * h
+    elif name == "point_conv_fused_strided":
+        x, idx, res = args[0], args[3], args[4]
+        b, m, k = idx.shape
+        h = x.shape[2]
+        # the weight MLP and the product per neighbour, the rider's max
+        ops = b * m * k * (2 * h * h + 11 * h + 3 + res.shape[2])
+    elif name in ("discrete_iterate", "discrete_iterate_bwd"):
+        q, w = args[0], args[3]
+        b, n, l = q.shape
+        k = w.shape[2]
+        # the message (2 K L a row), the L x L product (2 L^2) and the
+        # softmax (~5 L); the backward's dot, dz, du (5 L), dmsg and dC
+        # (2 L^2 each) and the scatter (2 K L)
+        ops = b * n * (2 * k * l + 2 * l * l + 5 * l if name ==
+                       "discrete_iterate" else 2 * k * l + 4 * l * l + 5 * l)
     else:  # crf_similarity_message
         y, idx = args[0], args[2]
         b, n, h = y.shape
@@ -420,6 +510,55 @@ def compare(name, args, got, ref):
                      + 1e-6 * float(dm_mass.max())).all()),
                "crf_iterate_bwd: dM outside 1e-4 of its mass")
         return max(float((a - r).abs().max()) for a, r in zip(got, ref))
+    if name == "point_conv_fused_strided":
+        # the convolution: float32 sums in another order, as K3; the
+        # rider's max is exact
+        ok = torch.allclose(got[0], ref[0], rtol=1e-4, atol=1e-5)
+        expect(ok, f"{name}: out outside rtol 1e-4 atol 1e-5")
+        expect(torch.equal(got[1], ref[1]), f"{name}: rider max not equal")
+        return float((got[0] - ref[0]).abs().max())
+    if name == "discrete_iterate":
+        # one sum order (k, then j, then l ascending) in both; expf may round
+        # apart from torch.exp
+        q_scale = float(ref[0].abs().max())
+        d_q = float((got[0] - ref[0]).abs().max())
+        BIT_EQUAL.setdefault(name, True)
+        BIT_EQUAL[name] &= bool(torch.equal(got[0], ref[0]))
+        expect(d_q <= 2e-6 * q_scale, f"{name}: q off by {d_q}")
+        if ref[1] is not None:
+            expect(got[1] is not None and torch.equal(got[1], ref[1]),
+                   f"{name}: msg not bit-equal")
+        return d_q
+    if name == "discrete_iterate_bwd":
+        from crfconv_tpu_torch.ops.crf_core import crf_iterate_bwd_plain
+        lam, qn, msg, w_, col, c_, du, dc = args[:8]
+        # dmsg and du + dz: one order, as the plain version
+        expect(torch.equal(got[1], ref[1]) and torch.equal(got[2], ref[2]),
+               f"{name}: dmsg or du not bit-equal")
+        # lam_t: f32 atomics, held as K11's lam (2^-126 per flushed add)
+        eye = torch.eye(c_.shape[0], device=c_.device)
+        zero_rows = torch.zeros_like(lam[..., :1])
+        mass = crf_iterate_bwd_plain(ref[1].abs(), torch.zeros_like(lam),
+                                     w_.abs(), col, eye, torch.zeros_like(lam),
+                                     torch.zeros_like(dc))[0]
+        terms = crf_iterate_bwd_plain(
+            torch.ones_like(zero_rows), zero_rows, torch.ones_like(w_), col,
+            torch.ones_like(eye[:1, :1]), zero_rows,
+            torch.zeros_like(eye[:1, :1]))[0]
+        tiny = torch.finfo(torch.float32).tiny
+        expect(bool(((got[0] - ref[0]).abs()
+                     <= 1e-5 * ref[0].abs() + 1e-6 * mass
+                     + 2 * tiny * terms).all()),
+               f"{name}: lam outside 1e-5 |ref| + 1e-6 mass + 2 * 2^-126 "
+               "per add")
+        # dC: block sums and atomics into the running sum, as K11's dM
+        l = lam.shape[-1]
+        dz = (got[2] - du).abs()
+        dc_mass = dc.abs() + msg.abs().reshape(-1, l).T @ dz.reshape(-1, l)
+        expect(bool(((got[3] - ref[3]).abs() <= 1e-4 * dc_mass
+                     + 1e-6 * float(dc_mass.max())).all()),
+               f"{name}: dC outside 1e-4 of its mass")
+        return max(float((a - r).abs().max()) for a, r in zip(got, ref))
     if name == "crf_neighbor_dot":
         from crfconv_tpu_torch.ops.crf_core import crf_neighbor_dot_plain
         mass = crf_neighbor_dot_plain(args[0].abs(), args[1].abs(), args[2])
@@ -469,7 +608,8 @@ def kernel_phase(name, kernel, plain, calls):
         ref_max = max([ref_max] + [
             float(r.abs().max()) for r in (ref if isinstance(ref, tuple)
                                            else (ref,))
-            if r.is_floating_point() and r.numel()
+            if isinstance(r, torch.Tensor) and r.is_floating_point()
+            and r.numel()
         ])
         b_ms, b_by = bound_of(name, args, got)
         bound_ms += b_ms
@@ -881,6 +1021,158 @@ def train_phases(dev, rng, out_dir: str, results: dict) -> dict:
 # --------------------------------------------------------------------------
 
 
+def small_train_path(label, state, raws, train_step, dev, cfg, expected,
+                     out_dir):
+    """The train main path of a small-family net at ScanNet's settings:
+    TRAIN_STEPS steps with their checks (a finite loss, every gradient
+    finite and nonzero, the confusion matrix counting the labelled points,
+    exact launch counts per step, every parameter and running statistic
+    moved), then one step's time, its phase split and a profile. Returns
+    the parameters (with the gradients of the last step taken) and the
+    measurements."""
+    from crfconv_tpu_torch import cuda_build
+
+    b, n, n_cls = cfg.batch_size, cfg.sample_num, cfg.num_classes
+    params = dict(state.model.named_parameters())
+    before = snapshot(state.model)
+    gens = [step_generator(dev, 1 + i) for i in range(TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cuda_build.reset_launch_counts()
+    step_s, losses = [], []
+    for i, raw in enumerate(raws):
+        t0 = time.perf_counter()
+        m = train_step(state, raw, gens[i])
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        losses.append(float(m["loss"]))
+        expect(np.isfinite(losses[-1]), f"{label} step {i}: loss {losses[-1]}")
+        bad = [nm for nm, p in params.items()
+               if p.grad is None or not bool(torch.isfinite(p.grad).all())
+               or not bool(p.grad.any())]
+        expect(not bad, f"{label} step {i}: no, non-finite or all-zero "
+               f"gradient {bad[:4]}")
+        labelled = int((raw.y >= cfg.label_offset).sum())
+        expect(tuple(m["confusion"].shape) == (n_cls, n_cls)
+               and int(m["confusion"].sum()) == labelled,
+               f"{label} step {i}: confusion matrix does not count the "
+               f"{labelled} labelled points")
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    record_launches(f"{label} train", cuda_build.launch_counts(), expected,
+                    TRAIN_STEPS, "steps")
+    after = snapshot(state.model)
+    still = [nm for nm in params if torch.equal(before[nm], after[nm])]
+    expect(not still, f"{label} parameters that did not move: {still[:4]}")
+    stats = [nm for nm in before if nm not in params]
+    same = [nm for nm in stats if torch.equal(before[nm], after[nm])]
+    expect(stats and not same,
+           f"{label} running statistics unchanged: {same[:4]}")
+    pts_s = TRAIN_STEPS * b * n / sum(step_s)
+    print(f"# {label}: trained {TRAIN_STEPS} steps of {b}x{n}: "
+          f"{[round(t * 1e3, 3) for t in step_s]} ms, {pts_s:.1f} points/s, "
+          f"loss {[round(v, 5) for v in losses]}, peak memory "
+          f"{peak_gb:.2f} GiB", flush=True)
+
+    gen_t = step_generator(dev, 50)
+    step_ms = median_ms(lambda: train_step(state, raws[0], gen_t), runs=3,
+                        warmup=1)
+    split = np.median([step_phases_ms(state, raws[0], gen_t, cfg.label_offset)
+                       for _ in range(3)], axis=0)
+    print(f"# {label} one train step: {step_ms:.3f} ms (events, median of "
+          f"3); phases pyramid {split[0]:.3f}, forward+loss {split[1]:.3f}, "
+          f"backward {split[2]:.3f}, optimizer {split[3]:.3f} ms", flush=True)
+    profile, busy = profile_phase(
+        f"{label} train profiler", lambda: train_step(state, raws[0], gen_t),
+        os.path.join(out_dir, f"chip_smoke_{label}_train_trace.json"), "step",
+        step_ms,
+    )
+    return params, {
+        "train_steps_ms": [t * 1e3 for t in step_s],
+        "train_points_per_s": pts_s,
+        "train_losses": losses,
+        "train_step_ms": step_ms,
+        "train_phases_ms": dict(zip(
+            ("pyramid", "forward_loss", "backward", "optimizer"),
+            map(float, split),
+        )),
+        "train_peak_gib": peak_gb,
+        "train_kernel_busy_ms": busy,
+        "train_profile": profile[:40],
+    }
+
+
+def small_kernel_vs_plain_step(label, make_state, raw, dev, cfg, plain_pairs,
+                               expected, plain_launches, loss_rtol):
+    """From one state and one pyramid: a train step through the kernels, a
+    second one for the atomics' run-to-run spread, and one with
+    ``plain_pairs`` patched in, differentiated by autograd. Launch counts
+    (``expected`` for the kernel step, ``plain_launches`` for the plain
+    one), the losses within ``loss_rtol``, every gradient within its
+    tolerance (:func:`grad_gap`), parameters rtol 1e-3 atol 5e-5 and
+    running statistics rtol 1e-3 atol 1e-5. Returns the measurements."""
+    from crfconv_tpu_torch import cuda_build, make_train_step
+    from crfconv_tpu_torch.train.train_state import (
+        TRAIN_MODE, build_windowed_batch,
+    )
+
+    batch = build_windowed_batch(raw, step_generator(dev, 100),
+                                 mode=TRAIN_MODE)
+    pb_step = make_train_step(TRAIN_MODE, ignore_index=cfg.ignore_index,
+                              label_offset=cfg.label_offset, windowed=False)
+    sk, sk2, sp = (make_state() for _ in range(3))
+    cuda_build.reset_launch_counts()
+    mk = pb_step(sk, batch)
+    k_counts = cuda_build.launch_counts()
+    pb_step(sk2, batch)
+    cuda_build.reset_launch_counts()
+    with patched(plain_pairs):
+        mp = pb_step(sp, batch)
+    p_counts = cuda_build.launch_counts()
+    torch.cuda.synchronize()
+    for name, per in expected.items():
+        expect(k_counts[name] == per, f"{label} kernel step: "
+               f"{k_counts[name]} launches of {name}, expected {per}")
+    expect(all(c == plain_launches.get(nm, 0) for nm, c in p_counts.items()),
+           f"{label} plain step launched {p_counts}")
+    loss_k, loss_p = float(mk["loss"]), float(mp["loss"])
+    expect(abs(loss_k - loss_p) <= loss_rtol * abs(loss_p),
+           f"{label} kernel vs plain step: loss {loss_k} vs {loss_p}")
+    d_grad, worst, g_max = grad_gap(sk.model, sp.model)
+    expect(d_grad <= 1.0, f"{label} kernel vs plain step: gradient of "
+           f"{worst} at {d_grad:.3g} of its tolerance")
+    d_rerun, worst_rerun, _ = grad_gap(sk.model, sk2.model)
+    expect(d_rerun <= 1.0, f"{label} kernel step rerun: gradient of "
+           f"{worst_rerun} at {d_rerun:.3g} of its tolerance")
+    rerun_bit_equal = all(
+        torch.equal(p.grad, q.grad)
+        for p, q in zip(sk.model.parameters(), sk2.model.parameters())
+    )
+    a_sd, b_sd = snapshot(sk.model), snapshot(sp.model)
+    pnames = {nm for nm, _ in sk.model.named_parameters()}
+    off = [nm for nm in b_sd if not torch.allclose(
+        a_sd[nm], b_sd[nm], rtol=1e-3, atol=5e-5 if nm in pnames else 1e-5)]
+    expect(not off, f"{label} kernel vs plain step: outside rtol 1e-3 "
+           f"{off[:4]}")
+    del sk2
+    kernel_step_ms = median_ms(lambda: pb_step(sk, batch), runs=3, warmup=1)
+    with patched(plain_pairs):
+        plain_step_ms = median_ms(lambda: pb_step(sp, batch), runs=3,
+                                  warmup=1)
+    print(f"# {label} train step kernels vs plain (one pyramid): loss "
+          f"{loss_k} vs {loss_p}, worst gradient {worst} at {d_grad:.3g} of "
+          f"its tolerance (largest |grad| {g_max:.3g}); kernel step rerun: "
+          f"gradients bit-equal {rerun_bit_equal}, worst {worst_rerun} at "
+          f"{d_rerun:.3g}; step on a built pyramid {kernel_step_ms:.3f} ms, "
+          f"plain versions {plain_step_ms:.3f} ms", flush=True)
+    return {
+        "loss": [loss_k, loss_p], "grad_of_tolerance": d_grad,
+        "grad_worst": worst, "grad_max": g_max,
+        "rerun_grad_of_tolerance": d_rerun,
+        "rerun_grads_bit_equal": rerun_bit_equal,
+        "kernel_step_ms": kernel_step_ms, "plain_step_ms": plain_step_ms,
+    }
+
+
 def scannet_config():
     from crfconv_tpu_torch.train.config import ScanNetConfig
 
@@ -950,12 +1242,8 @@ def scannet_phases(dev, rng, out_dir: str, results: dict) -> dict:
     ``results`` and the ScanNet main paths' launches; returns the ScanNet
     measurements."""
     from crfconv_tpu_torch import Predictor, cuda_build, make_train_step
-    from crfconv_tpu_torch.data.batch import PointBatch
-    from crfconv_tpu_torch.ops.windowed import build_pyramid_windowed
     from crfconv_tpu_torch.serve import SERVING_MODE
-    from crfconv_tpu_torch.train.train_state import (
-        TRAIN_MODE, build_windowed_batch,
-    )
+    from crfconv_tpu_torch.train.train_state import TRAIN_MODE
 
     cfg = scannet_config()
     b, n, n_cls = cfg.batch_size, cfg.sample_num, cfg.num_classes
@@ -1036,14 +1324,9 @@ def scannet_phases(dev, rng, out_dir: str, results: dict) -> dict:
     p_, f_ = reqs[0]
 
     def pyramid():
-        return build_pyramid_windowed(
-            p_, generator=torch.Generator(device=dev).manual_seed(SEED),
-            knn_exact=SERVING_MODE.knn_exact, device=dev,
-        )
+        return predictor.prepare(p_, f_)
 
-    order, scales = pyramid()
-    batch = PointBatch(x=torch.take_along_dim(f_, order[..., None], dim=1),
-                       y=None, scales=scales)
+    batch, _ = pyramid()
     with torch.inference_mode():
         pyramid_ms = median_ms(pyramid, runs=5)
         forward_ms = median_ms(lambda: model(batch, SERVING_MODE), runs=5)
@@ -1082,120 +1365,24 @@ def scannet_phases(dev, rng, out_dir: str, results: dict) -> dict:
     torch.cuda.empty_cache()
 
     # 12. train main path
-    params = dict(state.model.named_parameters())
-    before = snapshot(state.model)
-    gens = [step_generator(dev, 1 + i) for i in range(TRAIN_STEPS)]
-    torch.cuda.synchronize()
-    cuda_build.reset_launch_counts()
-    step_s, losses = [], []
-    for i, raw in enumerate(raws):
-        t0 = time.perf_counter()
-        m = train_step(state, raw, gens[i])
-        torch.cuda.synchronize()
-        step_s.append(time.perf_counter() - t0)
-        losses.append(float(m["loss"]))
-        expect(np.isfinite(losses[-1]), f"scannet step {i}: loss {losses[-1]}")
-        bad = [nm for nm, p in params.items()
-               if p.grad is None or not bool(torch.isfinite(p.grad).all())
-               or not bool(p.grad.any())]
-        expect(not bad, f"scannet step {i}: no, non-finite or all-zero "
-               f"gradient {bad[:4]}")
-        labelled = int((raw.y >= cfg.label_offset).sum())
-        expect(tuple(m["confusion"].shape) == (n_cls, n_cls)
-               and int(m["confusion"].sum()) == labelled,
-               f"scannet step {i}: confusion matrix does not count the "
-               f"{labelled} labelled points")
-    record_launches("scannet train", cuda_build.launch_counts(),
-                    SCANNET_PER_STEP, TRAIN_STEPS, "steps")
+    params, train = small_train_path("scannet", state, raws, train_step, dev,
+                                     cfg, SCANNET_PER_STEP, out_dir)
     c_grads = {nm: float(p.grad.abs().max()) for nm, p in params.items()
                if nm.endswith(".c")}
     expect(len(c_grads) == 4 and all(v > 0 for v in c_grads.values()),
            f"scannet: CRF compatibility gradients {c_grads}")
-    after = snapshot(state.model)
-    still = [nm for nm in params if torch.equal(before[nm], after[nm])]
-    expect(not still, f"scannet parameters that did not move: {still[:4]}")
-    stats = [nm for nm in before if nm not in params]
-    same = [nm for nm in stats if torch.equal(before[nm], after[nm])]
-    expect(stats and not same,
-           f"scannet running statistics unchanged: {same[:4]}")
-    train_pts_s = TRAIN_STEPS * b * n / sum(step_s)
-    print(f"# scannet: trained {TRAIN_STEPS} steps of {b}x{n}: "
-          f"{[round(t * 1e3, 3) for t in step_s]} ms, {train_pts_s:.1f} "
-          f"points/s, loss {[round(v, 5) for v in losses]}", flush=True)
-
-    gen_t = step_generator(dev, 50)
-    step_ms = median_ms(lambda: train_step(state, raws[0], gen_t), runs=3,
-                        warmup=1)
-    split = np.median([step_phases_ms(state, raws[0], gen_t, cfg.label_offset)
-                       for _ in range(3)], axis=0)
-    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
-    print(f"# scannet one train step: {step_ms:.3f} ms (events, median of "
-          f"3); phases pyramid {split[0]:.3f}, forward+loss {split[1]:.3f}, "
-          f"backward {split[2]:.3f}, optimizer {split[3]:.3f} ms; peak "
-          f"memory so far {peak_gb:.2f} GiB", flush=True)
-    train_profile, train_busy = profile_phase(
-        "scannet train profiler", lambda: train_step(state, raws[0], gen_t),
-        os.path.join(out_dir, "chip_smoke_scannet_train_trace.json"), "step",
-        step_ms,
-    )
-    del state
+    del state, params
     torch.cuda.empty_cache()
 
     # 13. one state, one pyramid: kernels vs plain versions, and a second
-    # kernel step for the atomics' run-to-run spread (K8, K11)
-    batch = build_windowed_batch(raws[0], step_generator(dev, 100),
-                                 mode=TRAIN_MODE)
-    pb_step = make_train_step(TRAIN_MODE, ignore_index=cfg.ignore_index,
-                              label_offset=cfg.label_offset, windowed=False)
-    sk, sk2, sp = (scannet_state(cfg, dev) for _ in range(3))
-    cuda_build.reset_launch_counts()
-    mk = pb_step(sk, batch)
-    k_counts = cuda_build.launch_counts()
-    pb_step(sk2, batch)
-    cuda_build.reset_launch_counts()
-    with patched(scannet_plain_pairs()):
-        mp = pb_step(sp, batch)
-    p_counts = cuda_build.launch_counts()
-    torch.cuda.synchronize()
-    for name, per in SCANNET_PER_STEP.items():
-        if name != "window_knn":   # the pyramid is built
-            expect(k_counts[name] == per,
-                   f"scannet kernel step: {k_counts[name]} launches of "
-                   f"{name}, expected {per}")
-    expect(not any(p_counts.values()), f"scannet plain step launched "
-           f"{p_counts}")
-    # the forward is bit-equal (K1, K9, K10), so the loss is; the backward
+    # kernel step for the atomics' run-to-run spread (K8, K11); the
+    # forward is bit-equal (K1, K9, K10), so the loss is; the backward
     # differs by the order of K8's and K11's atomics and K12's sums
-    loss_k, loss_p = float(mk["loss"]), float(mp["loss"])
-    expect(loss_k == loss_p, f"scannet kernel vs plain step: loss {loss_k} "
-           f"vs {loss_p}")
-    d_grad, worst, g_max = grad_gap(sk.model, sp.model)
-    expect(d_grad <= 1.0, f"scannet kernel vs plain step: gradient of "
-           f"{worst} at {d_grad:.3g} of its tolerance")
-    d_rerun, worst_rerun, _ = grad_gap(sk.model, sk2.model)
-    expect(d_rerun <= 1.0, f"scannet kernel step rerun: gradient of "
-           f"{worst_rerun} at {d_rerun:.3g} of its tolerance")
-    rerun_bit_equal = all(
-        torch.equal(p.grad, q.grad)
-        for p, q in zip(sk.model.parameters(), sk2.model.parameters())
+    step_check = small_kernel_vs_plain_step(
+        "scannet", lambda: scannet_state(cfg, dev), raws[0], dev, cfg,
+        scannet_plain_pairs(), {**SCANNET_PER_STEP, "window_knn": 0}, {},
+        loss_rtol=0.0,
     )
-    a_sd, b_sd = snapshot(sk.model), snapshot(sp.model)
-    pnames = {nm for nm, _ in sk.model.named_parameters()}
-    off = [nm for nm in b_sd if not torch.allclose(
-        a_sd[nm], b_sd[nm], rtol=1e-3, atol=5e-5 if nm in pnames else 1e-5)]
-    expect(not off, f"scannet kernel vs plain step: outside rtol 1e-3 "
-           f"{off[:4]}")
-    del sk2
-    kernel_step_ms = median_ms(lambda: pb_step(sk, batch), runs=3, warmup=1)
-    with patched(scannet_plain_pairs()):
-        plain_step_ms = median_ms(lambda: pb_step(sp, batch), runs=3,
-                                  warmup=1)
-    print(f"# scannet train step kernels vs plain (one pyramid): loss "
-          f"{loss_k} vs {loss_p}, worst gradient {worst} at {d_grad:.3g} of "
-          f"its tolerance (largest |grad| {g_max:.3g}); kernel step rerun: "
-          f"gradients bit-equal {rerun_bit_equal}, worst {worst_rerun} at "
-          f"{d_rerun:.3g}; step on a built pyramid {kernel_step_ms:.3f} ms, "
-          f"plain versions {plain_step_ms:.3f} ms", flush=True)
     return {
         "config": {"model": cfg.model_name, "batch": b, "points": n,
                    "classes": n_cls, "steps": cfg.steps,
@@ -1211,27 +1398,384 @@ def scannet_phases(dev, rng, out_dir: str, results: dict) -> dict:
         "argmax_agreement": agree,
         "kernel_busy_ms": serve_busy,
         "profile": serve_profile[:40],
-        "train_steps_ms": [t * 1e3 for t in step_s],
-        "train_points_per_s": train_pts_s,
-        "train_losses": losses,
-        "train_step_ms": step_ms,
-        "train_phases_ms": dict(zip(
-            ("pyramid", "forward_loss", "backward", "optimizer"),
-            map(float, split),
-        )),
-        "train_peak_gib": peak_gb,
-        "train_kernel_busy_ms": train_busy,
-        "train_profile": train_profile[:40],
+        **train,
         "c_grad_max": c_grads,
-        "kernel_vs_plain_step": {
-            "loss": [loss_k, loss_p], "grad_of_tolerance": d_grad,
-            "grad_worst": worst, "grad_max": g_max,
-            "rerun_grad_of_tolerance": d_rerun,
-            "rerun_grads_bit_equal": rerun_bit_equal,
-            "kernel_step_ms": kernel_step_ms, "plain_step_ms": plain_step_ms,
-        },
+        "kernel_vs_plain_step": step_check,
         "calls_per_request": SCANNET_PER_REQUEST,
         "calls_per_step": SCANNET_PER_STEP,
+    }
+
+
+# --------------------------------------------------------------------------
+# ScanNet-discrete: BaselineDiscreteCRFSegNet(steps=10), the discrete CRF
+# --------------------------------------------------------------------------
+
+
+def discrete_model(cfg, device, seed: int = SEED):
+    from crfconv_tpu_torch import BaselineDiscreteCRFSegNet
+
+    return BaselineDiscreteCRFSegNet(
+        cfg.num_classes, cfg.in_channels, steps=cfg.steps, device=device,
+        generator=torch.Generator().manual_seed(seed))
+
+
+def discrete_state(cfg, device, seed: int = SEED):
+    """A fresh TrainState of the discrete net with ScanNet's optimizer."""
+    from crfconv_tpu_torch import TrainState
+
+    return TrainState.create(
+        discrete_model(cfg, device, seed), lr=cfg.lr, momentum=cfg.momentum,
+        weight_decay=cfg.weight_decay, gamma=cfg.gamma,
+    )
+
+
+def serve_last_head(predictor, pos, feats):
+    """A two-head model served as the JAX package serves it: the
+    Predictor's pyramid, the forward, the last head (log q), in the input
+    order."""
+    with torch.inference_mode():
+        batch, order = predictor.prepare(pos, feats)
+        logq = predictor.model(batch, predictor.mode)[-1]
+        return predictor.restore(logq, order)
+
+
+def _k13(q, u, w, col, C, with_msg=False):
+    """K13 as a phase replays it: (q_next, msg_t or None)."""
+    from crfconv_tpu_torch.ops import discrete_core
+
+    msg = torch.empty_like(q) if with_msg else None
+    return discrete_core.discrete_iterate(q, u, w, col, C, msg_out=msg), msg
+
+
+def _k13_plain(q, u, w, col, C, with_msg=False):
+    from crfconv_tpu_torch.ops import discrete_core
+
+    out, msg = discrete_core._iterate_plain(q, u, w, col, C)
+    return out, (msg if with_msg else None)
+
+
+def discrete_call_sites():
+    """As :func:`call_sites`, for the discrete core's kernels, reached from
+    its autograd Function (K9 and K12 are the continuous core's)."""
+    from crfconv_tpu_torch.ops import crf_core, discrete_core
+
+    return {
+        "crf_operator": (discrete_core, "crf_operator", crf_core.crf_operator,
+                         crf_core.crf_operator_plain),
+        "discrete_iterate": (discrete_core, "discrete_iterate", _k13,
+                             _k13_plain),
+        "discrete_iterate_bwd": (discrete_core, "discrete_iterate_bwd",
+                                 discrete_core.discrete_iterate_bwd,
+                                 discrete_core.discrete_iterate_bwd_plain),
+        "crf_neighbor_dot": (discrete_core, "crf_neighbor_dot",
+                             crf_core.crf_neighbor_dot,
+                             crf_core.crf_neighbor_dot_plain),
+    }
+
+
+def discrete_plain_pairs():
+    """The discrete net's kernels replaced by their plain versions at their
+    call sites: K1 (so K8 becomes autograd's) and the whole discrete core
+    (K9, K13, and autograd for K12/K14). K2 (the CRF's kNN) stays: it is
+    held against its plain version on its recorded calls, and a last-bit
+    distance tie there would move a neighbour, not test the rest."""
+    from crfconv_tpu_torch.ops import crf, discrete_core, neighbors, windowed
+
+    return [(neighbors, "windowed_gather", windowed.windowed_gather_plain),
+            (crf, "discrete_core", discrete_core.discrete_core_plain)]
+
+
+def discrete_phases(dev, rng, out_dir: str, results: dict) -> dict:
+    """Phase 14: adds the ScanNet-discrete request's and step's kernel phases
+    to ``results`` and its main paths' launches; returns its
+    measurements."""
+    from crfconv_tpu_torch import Predictor, cuda_build, make_train_step
+    from crfconv_tpu_torch.train.train_state import TRAIN_MODE
+
+    cfg = scannet_config()
+    b, n, n_cls = cfg.batch_size, cfg.sample_num, cfg.num_classes
+    gen = torch.Generator().manual_seed(SEED + 11)
+    model = randomize_batch_norms(discrete_model(cfg, dev), gen)
+    with torch.no_grad():   # compatibilities away from the identity
+        model.crf.C.add_(0.1 * torch.randn(model.crf.C.shape,
+                                           generator=gen).to(dev))
+    predictor = Predictor(model, device=dev, seed=SEED)
+    d_sites = discrete_call_sites()
+
+    # warm-up request and train step, recording every kernel call of each
+    serve_sites = {k: v for k, v in call_sites().items()
+                   if k in ("windowed_gather", "window_knn")}
+    serve_sites.update((k, d_sites[k]) for k in ("crf_operator",
+                                                 "discrete_iterate"))
+    pos, feats = scannet_cloud(cfg, rng, dev)
+    torch.cuda.reset_peak_memory_stats()
+    calls = record_calls(serve_sites,
+                         lambda: serve_last_head(predictor, pos, feats),
+                         snapshot=tuple(d_sites))
+    torch.cuda.synchronize()
+    serve_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    for name, got in calls.items():
+        per = DISCRETE_PER_REQUEST[name]
+        expect(len(got) == per, f"discrete {name}: {len(got)} calls per "
+               f"request, expected {per}")
+    run_phases(results, "discrete serve", serve_sites, calls)
+    del calls
+    torch.cuda.empty_cache()
+
+    train_step = make_train_step(TRAIN_MODE, ignore_index=cfg.ignore_index,
+                                 label_offset=cfg.label_offset)
+    state = discrete_state(cfg, dev)
+    raws = [scannet_cloud(cfg, rng, dev, labels=True)
+            for _ in range(TRAIN_STEPS)]
+    train_sites = {**train_call_sites(), **d_sites}
+    torch.cuda.reset_peak_memory_stats()
+    calls = record_calls(
+        train_sites, lambda: train_step(state, raws[0], step_generator(dev, 0)),
+        snapshot=tuple(d_sites),
+    )
+    torch.cuda.synchronize()
+    for name, got in calls.items():
+        per = DISCRETE_PER_STEP[name]
+        expect(len(got) == per,
+               f"discrete {name}: {len(got)} calls per step, expected {per}")
+    run_phases(results, "discrete train", train_sites, calls)
+    del calls
+    torch.cuda.empty_cache()
+
+    # serving main path
+    reqs = [scannet_cloud(cfg, rng, dev) for _ in range(DISCRETE_REQUESTS)]
+    torch.cuda.synchronize()
+    cuda_build.reset_launch_counts()
+    lat, outs = [], []
+    for p_, f_ in reqs:
+        t0 = time.perf_counter()
+        logq = serve_last_head(predictor, p_, f_)
+        torch.cuda.synchronize()
+        lat.append(time.perf_counter() - t0)
+        outs.append(logq)
+    record_launches("discrete serve", cuda_build.launch_counts(),
+                    DISCRETE_PER_REQUEST, DISCRETE_REQUESTS, "requests")
+    for logq in outs:
+        expect(tuple(logq.shape) == (b, n, n_cls),
+               f"discrete log q shape {tuple(logq.shape)}")
+        expect(bool(torch.isfinite(logq).all()), "discrete: non-finite log q")
+        # q sums to 1; the 1e-12 floor of log q can add up to L * 1e-12
+        norm = float(torch.logsumexp(logq, -1).abs().max())
+        expect(norm <= 1e-4, f"discrete: log q off normal by {norm}")
+    del outs
+    pts_s = DISCRETE_REQUESTS * b * n / sum(lat)
+    print(f"# discrete: served {DISCRETE_REQUESTS} requests of {b}x{n}: "
+          f"{[round(t * 1e3, 3) for t in lat]} ms, {pts_s:.1f} points/s",
+          flush=True)
+
+    from crfconv_tpu_torch.serve import SERVING_MODE
+
+    p_, f_ = reqs[0]
+    batch, _ = predictor.prepare(p_, f_)
+    with torch.inference_mode():
+        forward_ms = median_ms(lambda: model(batch, SERVING_MODE), runs=5)
+        request_ms = median_ms(lambda: serve_last_head(predictor, p_, f_), runs=5)
+        got = model(batch, SERVING_MODE)[-1]
+        with patched(discrete_plain_pairs()):
+            ref = model(batch, SERVING_MODE)[-1]
+            plain_forward_ms = median_ms(lambda: model(batch, SERVING_MODE),
+                                         runs=3, warmup=1)
+    torch.cuda.synchronize()
+    d_logq = float((got - ref).abs().max())
+    scale = float(ref.abs().max())
+    fwd_bit_equal = bool(torch.equal(got, ref))
+    agree = float((got.argmax(-1) == ref.argmax(-1)).float().mean())
+    # K1, K9 are bit-equal to their plain versions, K13 up to expf's
+    # rounding; the rest of the forward is the same torch code
+    expect(d_logq <= 1e-5 * max(1.0, scale),
+           f"discrete kernel vs plain forward: max |dlogq| {d_logq}")
+    expect(agree >= 0.999, f"discrete argmax agreement {agree}")
+    print(f"# discrete forward kernels vs plain: max |dlogq| {d_logq:.3g} "
+          f"(max |logq| {scale:.3g}), bit-equal {fwd_bit_equal}, argmax "
+          f"agreement {agree}", flush=True)
+    print(f"# discrete one request: {request_ms:.3f} ms (forward "
+          f"{forward_ms:.3f} ms; plain-version forward {plain_forward_ms:.3f}"
+          f" ms); peak memory of a request {serve_peak:.2f} GiB", flush=True)
+    del got, ref, batch
+    with torch.inference_mode():
+        serve_profile, serve_busy = profile_phase(
+            "discrete profiler", lambda: serve_last_head(predictor, p_, f_),
+            os.path.join(out_dir, "chip_smoke_discrete_trace.json"),
+            "request", request_ms,
+        )
+    del reqs, model, predictor
+    torch.cuda.empty_cache()
+
+    # train main path
+    params, train = small_train_path("discrete", state, raws, train_step,
+                                     dev, cfg, DISCRETE_PER_STEP, out_dir)
+    crf_grads = {nm: float(params[nm].grad.abs().max())
+                 for nm in ("crf.F", "crf.W", "crf.C")}
+    print(f"# discrete: CRF gradients {crf_grads}", flush=True)
+    del state, params
+    torch.cuda.empty_cache()
+
+    # one state, one pyramid: kernels vs plain versions, and a second kernel
+    # step for the atomics' run-to-run spread (K8, K14). The built pyramid
+    # leaves one K2 launch, the CRF's kNN(32), in both steps. K13 may round
+    # its exp apart from torch's, so the losses may part in the last bits;
+    # the backward differs by K8's and K14's atomics
+    step_check = small_kernel_vs_plain_step(
+        "discrete", lambda: discrete_state(cfg, dev), raws[0], dev, cfg,
+        discrete_plain_pairs(), {**DISCRETE_PER_STEP, "window_knn": 1},
+        {"window_knn": 1}, loss_rtol=1e-6,
+    )
+    torch.cuda.empty_cache()
+    return {
+        "config": {"model": "BaselineDiscreteCRFSegNet", "batch": b,
+                   "points": n, "classes": n_cls, "steps": cfg.steps,
+                   "label_offset": cfg.label_offset},
+        "requests_ms": [t * 1e3 for t in lat],
+        "points_per_s": pts_s,
+        "request_ms": request_ms,
+        "forward_ms": forward_ms,
+        "plain_forward_ms": plain_forward_ms,
+        "max_abs_dlogq": d_logq,
+        "forward_bit_equal": fwd_bit_equal,
+        "argmax_agreement": agree,
+        "serve_peak_gib": serve_peak,
+        "kernel_busy_ms": serve_busy,
+        "profile": serve_profile[:40],
+        **train,
+        "crf_grad_max": crf_grads,
+        "kernel_vs_plain_step": step_check,
+        "calls_per_request": DISCRETE_PER_REQUEST,
+        "calls_per_step": DISCRETE_PER_STEP,
+    }
+
+
+# --------------------------------------------------------------------------
+# Semantic3D serving: the flagship at B16 x 65536, the strided fused conv
+# --------------------------------------------------------------------------
+
+
+def semantic3d_phases(dev, rng, out_dir: str, results: dict) -> dict:
+    """Phase 15: adds the Semantic3D request's kernel phases to ``results``
+    and its main path's launches; returns its measurements."""
+    from crfconv_tpu_torch import Predictor, PointConvResNet, cuda_build
+    from crfconv_tpu_torch.models import point_conv_big
+    from crfconv_tpu_torch.ops import conv
+    from crfconv_tpu_torch.serve import SERVING_MODE
+    from crfconv_tpu_torch.train.config import Semantic3DConfig
+
+    cfg = Semantic3DConfig()
+    b, n, n_cls = cfg.batch_size, cfg.sample_num, cfg.num_classes
+    gen = torch.Generator().manual_seed(SEED + 13)
+    model = randomize_batch_norms(
+        PointConvResNet(n_cls, cfg.in_channels, use_crf=True, steps=cfg.steps,
+                        device=dev, generator=gen), gen)
+    predictor = Predictor(model, device=dev, seed=SEED)
+
+    def cloud():
+        pos = torch.as_tensor(rng.random((b, n, 3), dtype=np.float32),
+                              device=dev)
+        feats = torch.as_tensor(
+            rng.random((b, n, cfg.in_channels), dtype=np.float32),
+            device=dev)
+        return pos, feats
+
+    sites = {**call_sites(), "point_conv_fused_strided": (
+        point_conv_big, "point_conv_fused_strided",
+        conv.point_conv_fused_strided, conv.point_conv_fused_strided_plain)}
+    pos, feats = cloud()
+    torch.cuda.reset_peak_memory_stats()
+    calls = record_calls(sites, lambda: predictor.predict_logits(pos, feats))
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    for name, got in calls.items():
+        per = SEMANTIC3D_PER_REQUEST[name]
+        expect(len(got) == per, f"semantic3d {name}: {len(got)} calls per "
+               f"request, expected {per}")
+    strided_rows = sorted((a[3].shape[1], a[0].shape[2], a[4].shape[2])
+                          for a, _ in calls["point_conv_fused_strided"])
+    run_phases(results, "semantic3d serve", sites, calls)
+    del calls
+    torch.cuda.empty_cache()
+
+    reqs = [cloud() for _ in range(SEMANTIC3D_REQUESTS)]
+    torch.cuda.synchronize()
+    cuda_build.reset_launch_counts()
+    lat = []
+    for p_, f_ in reqs:
+        t0 = time.perf_counter()
+        logits = predictor.predict_logits(p_, f_)
+        torch.cuda.synchronize()
+        lat.append(time.perf_counter() - t0)
+        expect(tuple(logits.shape) == (b, n, n_cls),
+               f"semantic3d logits shape {tuple(logits.shape)}")
+        expect(bool(torch.isfinite(logits).all()),
+               "semantic3d: non-finite logits")
+        del logits
+    record_launches("semantic3d serve", cuda_build.launch_counts(),
+                    SEMANTIC3D_PER_REQUEST, SEMANTIC3D_REQUESTS, "requests")
+    pts_s = SEMANTIC3D_REQUESTS * b * n / sum(lat)
+    print(f"# semantic3d: served {SEMANTIC3D_REQUESTS} requests of {b}x{n}: "
+          f"{[round(t * 1e3, 3) for t in lat]} ms, {pts_s:.1f} points/s; "
+          f"K5 on (rows, hidden, rider) {strided_rows}", flush=True)
+
+    p_, f_ = reqs[0]
+
+    def pyramid():
+        return predictor.prepare(p_, f_)
+
+    batch, _ = pyramid()
+    with torch.inference_mode():
+        pyramid_ms = median_ms(pyramid, runs=5)
+        forward_ms = median_ms(lambda: model(batch, SERVING_MODE), runs=5)
+        request_ms = median_ms(lambda: predictor.predict_logits(p_, f_),
+                               runs=5)
+        got = model(batch, SERVING_MODE)
+        with patched([(m, a, pl) for m, a, _, pl in sites.values()]):
+            ref = model(batch, SERVING_MODE)
+            plain_forward_ms = median_ms(lambda: model(batch, SERVING_MODE),
+                                         runs=3, warmup=1)
+    torch.cuda.synchronize()
+    d_logit = float((got - ref).abs().max())
+    scale = float(ref.abs().max())
+    agree = float((got.argmax(-1) == ref.argmax(-1)).float().mean())
+    # K3/K4/K5 sum in another order than the plain matmuls (~1e-6 relative
+    # per layer), carried through 20 layers: 1e-6 of the largest logit was
+    # measured on the H100, so 1e-4 leaves a hundredfold
+    expect(d_logit <= 1e-4 * scale,
+           f"semantic3d kernel vs plain forward: max |dlogit| {d_logit}")
+    expect(agree >= 0.999, f"semantic3d argmax agreement {agree}")
+    print(f"# semantic3d forward kernels vs plain: max |dlogit| "
+          f"{d_logit:.3g} (max |logit| {scale:.3g}), argmax agreement "
+          f"{agree}", flush=True)
+    print(f"# semantic3d one request: {request_ms:.3f} ms (pyramid "
+          f"{pyramid_ms:.3f} ms, forward {forward_ms:.3f} ms; plain-version "
+          f"forward {plain_forward_ms:.3f} ms); peak memory of a request "
+          f"{peak:.2f} GiB", flush=True)
+    del got, ref, batch
+    with torch.inference_mode():
+        profile_rows, busy = profile_phase(
+            "semantic3d profiler", lambda: predictor.predict_logits(p_, f_),
+            os.path.join(out_dir, "chip_smoke_semantic3d_trace.json"),
+            "request", request_ms,
+        )
+    del predictor, model, reqs
+    torch.cuda.empty_cache()
+    return {
+        "config": {"model": "PointConvResNet", "batch": b, "points": n,
+                   "classes": n_cls, "steps": cfg.steps},
+        "requests_ms": [t * 1e3 for t in lat],
+        "points_per_s": pts_s,
+        "request_ms": request_ms,
+        "pyramid_ms": pyramid_ms,
+        "forward_ms": forward_ms,
+        "plain_forward_ms": plain_forward_ms,
+        "max_abs_dlogit": d_logit,
+        "argmax_agreement": agree,
+        "peak_gib": peak,
+        "strided_calls": strided_rows,
+        "kernel_busy_ms": busy,
+        "profile": profile_rows[:40],
+        "calls_per_request": SEMANTIC3D_PER_REQUEST,
     }
 
 
@@ -1247,7 +1791,6 @@ def main() -> int:
               f"{e}", file=sys.stderr)
         return 2
     from crfconv_tpu_torch import Predictor, cuda_build
-    from crfconv_tpu_torch.data.batch import PointBatch
     from crfconv_tpu_torch.serve import SERVING_MODE
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1319,19 +1862,12 @@ def main() -> int:
           flush=True)
 
     # phases of one request: pyramid and forward, CUDA events
-    from crfconv_tpu_torch.ops.windowed import build_pyramid_windowed
-
     p_, f_ = reqs[0]
 
     def pyramid():
-        return build_pyramid_windowed(
-            p_, generator=torch.Generator(device=dev).manual_seed(SEED),
-            knn_exact=SERVING_MODE.knn_exact, device=dev,
-        )
+        return predictor.prepare(p_, f_)
 
-    order, scales = pyramid()
-    x = torch.take_along_dim(f_, order[..., None], dim=1)
-    batch = PointBatch(x=x, y=None, scales=scales)
+    batch, _ = pyramid()
     with torch.inference_mode():
         pyramid_ms = median_ms(pyramid, runs=10)
         forward_ms = median_ms(lambda: model(batch, SERVING_MODE), runs=10)
@@ -1350,8 +1886,9 @@ def main() -> int:
     scale = float(ref.abs().max())
     argmax_agree = float((got.argmax(-1) == ref.argmax(-1)).float().mean())
     # tolerance: K3/K4 sum in another order than the plain matmuls
-    # (~1e-6 relative per layer), carried through 20 layers
-    expect(d_logit <= 1e-3 * max(1.0, scale),
+    # (~1e-6 relative per layer), carried through 20 layers; 4e-7 of the
+    # largest logit was measured on the H100, so 1e-4 leaves a hundredfold
+    expect(d_logit <= 1e-4 * scale,
            f"kernel vs plain forward: max |dlogit| {d_logit} (scale {scale})")
     expect(argmax_agree >= 0.999, f"argmax agreement {argmax_agree}")
     print(f"# forward kernels vs plain: max |dlogit| {d_logit:.3g} "
@@ -1371,11 +1908,15 @@ def main() -> int:
     train = train_phases(dev, rng, out_dir, results)
     torch.cuda.empty_cache()
     scannet = scannet_phases(dev, rng, out_dir, results)
+    torch.cuda.empty_cache()
+    discrete = discrete_phases(dev, rng, out_dir, results)
+    semantic3d = semantic3d_phases(dev, rng, out_dir, results)
 
-    # launches: the sum over the four main paths (flagship serve and train,
-    # ScanNet serve and train). The times are those of the first path whose
-    # calls were held against the plain version; every path's are in
-    # "phases", and max_abs_err is the largest over them
+    # launches: the sum over the seven main paths (flagship serve and train,
+    # ScanNet serve and train, ScanNet-discrete serve and train, Semantic3D
+    # serve). The times are those of the first path whose calls were held
+    # against the plain version; every path's are in "phases", and
+    # max_abs_err is the largest over them
     kernels = []
     for name in REPLACES:
         phases = results[name]
@@ -1385,6 +1926,8 @@ def main() -> int:
         r["launches"] = sum(LAUNCHES[name].values())
         r["launches_by_path"] = LAUNCHES[name]
         r["timed_on"] = phases[0]["path"]
+        if name in BIT_EQUAL:
+            r["bit_equal"] = BIT_EQUAL[name]
         r["calls_per_run"] = phases[0]["calls"]
         r["phases"] = [
             {k: p[k] for k in ("path", "calls", "max_abs_err", "max_abs_ref",
@@ -1410,6 +1953,8 @@ def main() -> int:
         "profile": profile_rows[:40],
         **train,
         "scannet": scannet,
+        "discrete": discrete,
+        "semantic3d": semantic3d,
         "failures": FAILURES,
     }
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as fh:

@@ -1,5 +1,6 @@
 """Weight bridge: a flax variable tree (``PointConvResNet``, ``CRFSegNet``,
-``BaselineSegNet``) onto the port's model of the same name.
+``BaselineSegNet``, ``BaselineDiscreteCRFSegNet``, ``DualCRFSegNet``) onto
+the port's model of the same name.
 
 The port's module names are the flax names, so the mapping is structural:
 
@@ -9,7 +10,9 @@ The port's module names are the flax names, so the mapping is structural:
     ``{mean,var}`` -> ``<path>.bn.{scale,bias,mean,var}``;
   * a bare Dense (``classifier_1``, ``classifier/fc1``) ``kernel``/``bias``
     -> ``weight``/``bias``;
-  * any other leaf (the CRF compatibility ``c``) is copied as it is.
+  * any other leaf is copied as it is: the continuous CRF's compatibility
+    ``c`` and the discrete CRF's ``crf/{F, W, C}`` (kernels, kernel
+    weights, label compatibility).
 """
 
 from __future__ import annotations

@@ -31,7 +31,7 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
 )
-HEADERS = ("window.cuh", "crf_rows.cuh")
+HEADERS = ("window.cuh", "crf_rows.cuh", "point_conv.cuh")
 
 NOTHING_LAUNCHED = -1   # an entry point's code for an empty problem
 _P = ctypes.c_void_p
@@ -141,10 +141,23 @@ CRF_NEIGHBOR_DOT = Kernel(
     "crf_neighbor_dot", "crf_neighbor_dot.cu", "crf_neighbor_dot_f32",
     [_P] * 4 + [_I] * 5 + [_P],
 )
+POINT_CONV_FUSED_STRIDED = Kernel(
+    "point_conv_fused_strided", "point_conv_strided.cu",
+    "point_conv_strided_f32", [_P] * 14 + [_I] * 9 + [ctypes.c_float, _P],
+)
+DISCRETE_ITERATE = Kernel(
+    "discrete_iterate", "discrete_iterate.cu", "discrete_iterate_f32",
+    [_P] * 7 + [_I] * 4 + [_P],
+)
+DISCRETE_ITERATE_BWD = Kernel(
+    "discrete_iterate_bwd", "discrete_iterate_bwd.cu",
+    "discrete_iterate_bwd_f32", [_P] * 11 + [_I] * 4 + [_P],
+)
 KERNELS = (
     WINDOWED_GATHER, WINDOW_KNN, POINT_CONV_FUSED_INFER,
     CRF_SIMILARITY_MESSAGE, WINDOWED_WEIGHTED_REDUCE, WINDOWED_GATHER_BWD,
     CRF_OPERATOR, CRF_ITERATE, CRF_ITERATE_BWD, CRF_NEIGHBOR_DOT,
+    POINT_CONV_FUSED_STRIDED, DISCRETE_ITERATE, DISCRETE_ITERATE_BWD,
 )
 
 

@@ -19,7 +19,8 @@ from crfconv_tpu_torch.models.common import (
 )
 from crfconv_tpu_torch.models.crf_conv import ContinuousCRFConv
 from crfconv_tpu_torch.ops.conv import (
-    fold_bn, fused_eligible, point_conv_fused_infer, train_fused_eligible,
+    fold_bn, fused_eligible, point_conv_fused_infer, point_conv_fused_strided,
+    train_fused_eligible,
 )
 from crfconv_tpu_torch.ops.neighbors import (
     NeighborMode, gather_neighbors, upsample_nearest,
@@ -52,14 +53,23 @@ class PointConv(nn.Module):
         sub_pos: Optional[torch.Tensor] = None,  # [B, M, 3]
         extra: Optional[torch.Tensor] = None,    # [B, N, E] rider
     ):
-        if sub_pos is None and fused_eligible(
-            self.training, self.d_model, neighbor_idx.shape[1], mode.windowed
+        if fused_eligible(
+            self.training, self.d_model, neighbor_idx.shape[1], mode.windowed,
+            sub_pos is not None, extra is not None,
         ):
             w0, a0, c0 = _folded(self.weight_nn_0)
             w1, a1, c1 = _folded(self.weight_nn_1)
-            return point_conv_fused_infer(
-                x.contiguous(), pos, neighbor_idx, w0, a0, c0, w1, a1, c1,
-                mode.tile, mode.pad,
+            if sub_pos is None:
+                return point_conv_fused_infer(
+                    x.contiguous(), pos, neighbor_idx, w0, a0, c0, w1, a1,
+                    c1, mode.tile, mode.pad,
+                )
+            # strided, with the residual max-pooled over the same
+            # neighbours in the same pass
+            return point_conv_fused_strided(
+                x.contiguous(), pos, sub_pos, neighbor_idx,
+                extra.contiguous(), w0, a0, c0, w1, a1, c1, mode.tile,
+                mode.pad,
             )
         if sub_pos is None and train_fused_eligible(
             self.training, self.d_model, neighbor_idx.shape[1],

@@ -1,7 +1,8 @@
-"""Continuous Gaussian CRF mean-field math on dense neighbourhoods.
+"""CRF mean-field math on dense neighbourhoods.
 
-Counterpart of ``crfconv_tpu/ops/crf.py``: given unary features z and a
-Gaussian similarity s over K neighbours, iterate
+Counterpart of ``crfconv_tpu/ops/crf.py``. The continuous Gaussian CRF:
+given unary features z and a Gaussian similarity s over K neighbours,
+iterate
 
     x <- (z + (S x) C)(I + C)^-1,   C = c^T c.
 
@@ -12,6 +13,11 @@ kernels; every other case runs the scan here, differentiable by autograd.
 At steps = 1 the first message comes from the fused similarity kernel
 (``msg0``, serving) or from the gathered neighbours (``neighbors0``), and
 no iteration is left.
+
+The discrete CRF (CRF-as-RNN over class probabilities),
+:func:`discrete_crf_update`, iterates q <- softmax(-u - (sum_j w_ij q_j) C)
+the same way: the fused core (``ops/discrete_core.py``, kernels K9, K12,
+K13 and K14) in the windowed regime at steps >= 2, else the scan here.
 """
 
 from __future__ import annotations
@@ -21,6 +27,7 @@ from typing import Optional
 import torch
 
 from crfconv_tpu_torch.ops.crf_core import compat_products, crf_core
+from crfconv_tpu_torch.ops.discrete_core import discrete_core
 from crfconv_tpu_torch.ops.neighbors import (
     NeighborMode, gather_neighbors, masked_softmax,
 )
@@ -86,3 +93,41 @@ def crf_mean_field(
     for _ in range(remaining):
         x = update(gather_neighbors(x, neighbor_idx, mode))
     return x
+
+
+def discrete_crf_update(
+    p: torch.Tensor,
+    unary: torch.Tensor,
+    w: torch.Tensor,
+    neighbor_idx: torch.Tensor,
+    compat: torch.Tensor,
+    steps: int,
+    mode: NeighborMode,
+    mask: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """``steps`` CRF-as-RNN mean-field iterations from q = p:
+
+        q <- softmax(-u - (sum_j w_ij q_j) C),
+
+    p, unary [B, N, L], edge weights w [B, N, K], neighbor_idx [B, N, K],
+    compat C [L, L], optional neighbour validity mask [B, N, K] (masked
+    weights are zeroed first) -> q [B, N, L]. The windowed regime at steps
+    >= 2 runs the fused core, as the JAX package's dispatch does."""
+    if mask is not None:
+        w = torch.where(mask, w, torch.zeros((), dtype=w.dtype,
+                                             device=w.device))
+    if mode.windowed and steps >= 2:
+        return discrete_core(p, unary, w, neighbor_idx, compat, steps,
+                             mode.tile, mode.pad)
+    return _discrete_scan(p, unary, w, neighbor_idx, compat, steps, mode)
+
+
+def _discrete_scan(p, unary, w, neighbor_idx, compat, steps, mode):
+    """The mean-field loop through the neighbour gather, differentiable by
+    autograd."""
+    q = p
+    for _ in range(steps):
+        msg = torch.einsum("bnk,bnkl->bnl", w,
+                           gather_neighbors(q, neighbor_idx, mode))
+        q = torch.softmax(-unary - msg @ compat, dim=-1)
+    return q

@@ -406,6 +406,17 @@ def window_knn_plain(
 # ---------------------------------------------------------------------------
 
 
+def window_knn_auto(src, k, query=None, tile: int = TILE, pad: int = PAD,
+                    knn_exact: bool = True) -> torch.Tensor:
+    """``window_knn`` with the pyramid's selection rule: exact selection
+    when ``knn_exact`` is set or the window is wider than
+    PACKED_MAX_WIDTH, else the packed key."""
+    m = src.shape[1] if query is None else query.shape[1]
+    _, width, _ = window_starts(m, src.shape[1], tile, pad)
+    exact = knn_exact or width > PACKED_MAX_WIDTH
+    return window_knn(src, k, query, tile, pad, exact)
+
+
 def build_pyramid_windowed(
     pos,
     kernel_sizes: Sequence[int] = (16, 16, 16, 16, 16),
@@ -440,16 +451,11 @@ def build_pyramid_windowed(
     order = morton_order(pos, rot=curve_rot)
     pos = torch.take_along_dim(pos, order[..., None], dim=1)
 
-    def knn(src, k, query=None):
-        m = src.shape[1] if query is None else query.shape[1]
-        _, width, _ = window_starts(m, src.shape[1], tile, pad)
-        exact = knn_exact or width > PACKED_MAX_WIDTH
-        return window_knn(src, k, query, tile, pad, exact)
-
     scales = []
     for s, (k, r) in enumerate(zip(kernel_sizes, ratios)):
         n = pos.shape[1]
-        neighbor_idx = knn(pos, min(k, n))
+        neighbor_idx = window_knn_auto(pos, min(k, n), None, tile, pad,
+                                       knn_exact)
         sample_num = max(n // r, 1)
         if offsets is not None:
             off = offsets[s]
@@ -465,7 +471,7 @@ def build_pyramid_windowed(
         choice = torch.clamp(choice + off.to(pos.device).long(), max=n - 1)
         sub_pos = pos[:, choice].contiguous()
         sub_idx = neighbor_idx[:, choice].contiguous()
-        up_idx = knn(sub_pos, 1, query=pos)
+        up_idx = window_knn_auto(sub_pos, 1, pos, tile, pad, knn_exact)
         scales.append(ScaleData(pos, neighbor_idx, sub_idx, up_idx))
         pos = sub_pos
     return order, tuple(scales)

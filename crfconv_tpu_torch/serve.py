@@ -8,7 +8,7 @@ Point-sharded (mesh) serving is not ported yet.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -44,14 +44,13 @@ class Predictor:
         self.mode = dataclasses.replace(mode, mode="windowed")
         self.seed = seed
 
-    @torch.inference_mode()
-    def predict_logits(
+    def prepare(
         self, pos, feats, offsets: Optional[Sequence] = None,
-    ) -> torch.Tensor:
-        """[B, N, 3] positions + [B, N, C_in] features -> [B, N, n_classes]
-        scores (the model's output: logits or log-probabilities) in the
-        input point order. ``offsets`` injects the per-scale
-        subsampling offsets instead of drawing them."""
+    ) -> Tuple[PointBatch, torch.Tensor]:
+        """The request's pyramid: [B, N, 3] positions + [B, N, C_in]
+        features -> (the batch in Morton order, ``order`` [B, N], the
+        Morton permutation). ``offsets`` injects the per-scale subsampling
+        offsets instead of drawing them."""
         pos = torch.as_tensor(pos, dtype=torch.float32, device=self.device)
         feats = torch.as_tensor(feats, dtype=torch.float32, device=self.device)
         gen = None
@@ -63,11 +62,25 @@ class Predictor:
             device=self.device,
         )
         x = torch.take_along_dim(feats, order[..., None], dim=1)
-        logits = self.model(PointBatch(x=x, y=None, scales=scales), self.mode)
-        # sorted row i is input row order[b, i]; argsort(order) maps input
-        # row j back to its sorted position
+        return PointBatch(x=x, y=None, scales=scales), order
+
+    @staticmethod
+    def restore(out: torch.Tensor, order: torch.Tensor) -> torch.Tensor:
+        """Per-point rows [B, N, ...] in Morton order -> the input order.
+        Sorted row i is input row order[b, i]; argsort(order) maps input
+        row j back to its sorted position."""
         inv = torch.argsort(order, dim=1)
-        return torch.take_along_dim(logits, inv[..., None], dim=1)
+        return torch.take_along_dim(out, inv[..., None], dim=1)
+
+    @torch.inference_mode()
+    def predict_logits(
+        self, pos, feats, offsets: Optional[Sequence] = None,
+    ) -> torch.Tensor:
+        """[B, N, 3] positions + [B, N, C_in] features -> [B, N, n_classes]
+        scores (the model's output: logits or log-probabilities) in the
+        input point order. ``offsets`` as in :meth:`prepare`."""
+        batch, order = self.prepare(pos, feats, offsets)
+        return self.restore(self.model(batch, self.mode), order)
 
     def predict(self, pos, feats, offsets: Optional[Sequence] = None):
         """[B, N, 3] + [B, N, C_in] -> [B, N] int64 class labels."""

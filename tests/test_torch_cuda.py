@@ -1,11 +1,13 @@
-"""The ten CUDA kernels against their plain versions on the card, at edge
-shapes the main path does not reach: ragged tiles, indices outside their
-window (clamped rows that read zero), every template width of K3/K4, tiny
-clouds whose windows are mostly sentinel rows, and K > 16; the CRF core's
-kernels (K9-K12) at widths 8 to 256, B = 1, N = 1, 63, 65, duplicated
-indices and all-masked rows; the backward of the three autograd Functions
-(K1/K8, K7/K8, the CRF core K9-K12) against autograd through the plain
-versions; and the kernels without a backward refusing to drop a gradient.
+"""The thirteen CUDA kernels against their plain versions on the card, at
+edge shapes the main path does not reach: ragged tiles, indices outside
+their window (clamped rows that read zero), every template width of K3/K4
+and K5 (with riders of 13 to 128 channels), tiny clouds whose windows are
+mostly sentinel rows, and K > 16; the CRF cores' kernels (K9-K12, and the
+discrete K13/K14 at 1 to 50 classes) at B = 1, N = 1, 63, 65, duplicated
+indices, all-masked rows and subnormal weights; the backward of the four
+autograd Functions (K1/K8, K7/K8, the continuous core K9-K12, the discrete
+core K9/K12-K14) against autograd through the plain versions; and the
+kernels without a backward refusing to drop a gradient.
 
 Needs an NVIDIA GPU and nvcc; skipped otherwise. On the card run
 
@@ -21,7 +23,9 @@ import numpy as np
 import pytest
 import torch
 
-from crfconv_tpu_torch.ops import conv, crf_core, crf_sim, windowed
+from crfconv_tpu_torch.ops import (
+    conv, crf_core, crf_sim, discrete_core, windowed,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -342,3 +346,191 @@ def test_crf_kernels_raise_under_grad(dev):
     with pytest.raises(ValueError):   # stacks of two lengths
         crf_core.crf_neighbor_dot(torch.zeros(2, 1, 128, 8, device=dev),
                                   torch.zeros(1, 1, 128, 8, device=dev), col)
+
+
+# --------------------------------------------------------------------------
+# K5: the strided point convolution with its rider
+# --------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("b,n,m,h,k,r,spread", [
+    (2, 1100, 275, 16, 16, 64, 300),   # conv2_1's widths; rows clamp out
+    (1, 4096, 1024, 32, 16, 128, 48),  # conv3_1's
+    (1, 65, 17, 8, 9, 13, 40),         # ragged tiles, a ragged rider
+    (1, 1, 1, 4, 4, 5, 4),             # one point
+])
+def test_point_conv_strided_matches_plain(dev, b, n, m, h, k, r, spread):
+    rng = np.random.default_rng(20)
+    pos = _sorted_cloud(rng, b, n, dev)
+    sub_pos = pos[:, :: max(n // m, 1)][:, :m].contiguous()
+    x = torch.randn(b, n, h, device=dev)
+    res = torch.randn(b, n, r, device=dev)
+    idx = _idx(rng, b, m, n, k, spread, dev)
+    idx[:, :, 1] = idx[:, :, 0]                   # duplicated neighbours
+    g = torch.Generator().manual_seed(1)
+    w = [torch.randn(s, generator=g).to(dev) for s in
+         ((3, h), (h,), (h,), (h, h), (h,), (h,))]
+    got, got_r = conv.point_conv_fused_strided(x, pos, sub_pos, idx, res, *w)
+    ref, ref_r = conv.point_conv_fused_strided_plain(x, pos, sub_pos, idx,
+                                                     res, *w)
+    # float32 sums over K and H in another order; the max is exact
+    torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4)
+    assert torch.equal(got_r, ref_r)
+
+
+def test_point_conv_strided_rider_reads_zero_outside(dev):
+    """Neighbour rows clamped outside the cloud give a zero rider, so a
+    negative rider's max is 0 exactly at those points."""
+    rng = np.random.default_rng(21)
+    n, m, h, k, r = 300, 75, 8, 8, 20
+    pos = _sorted_cloud(rng, 1, n, dev)
+    sub_pos = pos[:, ::4].contiguous()
+    idx = torch.as_tensor(
+        ((np.arange(m) * 4)[None, :, None]
+         + rng.integers(-48, 48, (1, m, k))).astype(np.int32), device=dev)
+    res = -1.0 - torch.rand(1, n, r, device=dev)
+    w = [torch.randn(s, device=dev) for s in
+         ((3, h), (h,), (h,), (h, h), (h,), (h,))]
+    _, got_r = conv.point_conv_fused_strided(
+        torch.randn(1, n, h, device=dev), pos, sub_pos, idx, res, *w)
+    outside = ((idx < 0) | (idx >= n)).any(-1)
+    assert bool(outside.any()) and not bool(outside.all())
+    assert bool((got_r[outside] == 0).all())
+    assert bool((got_r[~outside] < 0).all())
+
+
+def test_point_conv_strided_raises_under_grad(dev):
+    rng = np.random.default_rng(22)
+    n, m, h = 256, 64, 8
+    pos = _sorted_cloud(rng, 1, n, dev)
+    idx = _idx(rng, 1, m, n, 16, 40, dev)
+    res = torch.randn(1, n, 16, device=dev, requires_grad=True)
+    w = [torch.randn(s, device=dev) for s in
+         ((3, h), (h,), (h,), (h, h), (h,), (h,))]
+    args = (torch.randn(1, n, h, device=dev), pos, pos[:, ::4].contiguous(),
+            idx, res, *w)
+    with pytest.raises(RuntimeError, match="no backward"):
+        conv.point_conv_fused_strided(*args)
+    with torch.no_grad():
+        conv.point_conv_fused_strided(*args)
+
+
+# --------------------------------------------------------------------------
+# K13, K14: the discrete CRF core
+# --------------------------------------------------------------------------
+
+
+def _discrete_inputs(rng, b, n, l, k, spread, dev):
+    """q, u, w (a masked slot, an all-masked row, subnormal and zero
+    weights, as exp(-|e_i - e_j|^2) has), indices with duplicates and
+    out-of-window slots, C near the identity."""
+    q = torch.softmax(2 * torch.randn(b, n, l, device=dev), dim=-1)
+    u = -torch.log(torch.softmax(torch.randn(b, n, l, device=dev), dim=-1))
+    w = torch.rand(b, n, k, device=dev)
+    w[:, ::3, k // 2] *= 1e-39
+    w[:, 1::4, k // 3] = 0.0
+    w[:, :, min(2, k - 1)] = 0.0
+    w[:, n // 2] = 0.0
+    idx = _idx(rng, b, n, n, k, spread, dev)
+    idx[:, :, 0] = idx[:, :, -1]
+    c = torch.eye(l, device=dev) + 0.1 * torch.randn(l, l, device=dev)
+    return q, u, w.contiguous(), idx.contiguous(), c
+
+
+DISCRETE_SHAPES = [   # (b, n, l, k, spread)
+    (1, 1, 20, 4, 4), (2, 63, 13, 15, 40), (1, 65, 20, 31, 300),
+    (2, 1000, 20, 31, 90), (1, 300, 50, 31, 60), (1, 100, 13, 40, 60),
+    (1, 200, 33, 9, 60),
+]
+
+
+@pytest.mark.parametrize("b,n,l,k,spread", DISCRETE_SHAPES)
+def test_discrete_iterate_matches_plain(dev, b, n, l, k, spread):
+    rng = np.random.default_rng(30)
+    q, u, w, idx, c = _discrete_inputs(rng, b, n, l, k, spread, dev)
+    col = crf_core.crf_operator(idx)
+    msg = torch.empty_like(q)
+    got = discrete_core.discrete_iterate(q, u, w, col, c, msg_out=msg)
+    ref, ref_msg = discrete_core._iterate_plain(q, u, w, col, c)
+    assert torch.equal(msg, ref_msg)     # one order: k ascending
+    # exp may round apart from torch.exp; the rest is one order
+    assert float((got - ref).abs().max()) <= 2e-6 * float(ref.abs().max())
+    torch.testing.assert_close(got.sum(-1), torch.ones(b, n, device=dev))
+    # an all-masked row is softmax(-u)
+    torch.testing.assert_close(got[:, n // 2], torch.softmax(-u[:, n // 2], -1),
+                               rtol=1e-6, atol=1e-7)
+
+
+@pytest.mark.parametrize("b,n,l,k,spread", DISCRETE_SHAPES)
+def test_discrete_iterate_bwd_matches_plain(dev, b, n, l, k, spread):
+    rng = np.random.default_rng(31)
+    q, u, w, idx, c = _discrete_inputs(rng, b, n, l, k, spread, dev)
+    col = crf_core.crf_operator(idx)
+    lam = torch.randn(b, n, l, device=dev)
+    msg = crf_core._message(q, w, col)
+    du = torch.randn(b, n, l, device=dev)
+    dC = torch.randn(l, l, device=dev)
+    got = discrete_core.discrete_iterate_bwd(lam, q, msg, w, col, c, du, dC)
+    ref = discrete_core.discrete_iterate_bwd_plain(lam, q, msg, w, col, c, du,
+                                                   dC)
+    assert torch.equal(got[1], ref[1])        # dmsg: the plain version's order
+    assert torch.equal(got[2], ref[2])        # du + dz
+    # lam_t: f32 atomics in another order than index_add_, each add
+    # flushing subnormal inputs and results to zero (atom.add.f32)
+    dz = q * (lam - (lam * q).sum(-1, keepdim=True))
+    dmsg_mass = ref[1].abs()
+    keep = col >= 0
+    rows = (torch.arange(b, device=dev)[:, None, None] * n
+            + torch.where(keep, col, 0).long()).reshape(-1)
+    mass = torch.zeros(b * n, l, device=dev).index_add_(
+        0, rows, (torch.where(keep, w, 0)[..., None]
+                  * dmsg_mass[:, :, None, :]).reshape(-1, l)).reshape(b, n, l)
+    terms = torch.zeros(b * n, device=dev).index_add_(
+        0, rows, keep.float().reshape(-1)).reshape(b, n, 1)
+    tiny = torch.finfo(torch.float32).tiny
+    assert bool(((got[0] - ref[0]).abs() <= 1e-5 * ref[0].abs() + 1e-6 * mass
+                 + 2 * tiny * terms).all())
+    # dC: a sum over every row, in blocks, then atomics into the running sum
+    scale = float((dC.abs() + msg.abs().reshape(-1, l).T
+                   @ dz.abs().reshape(-1, l)).max())
+    assert float((got[3] - ref[3]).abs().max()) <= 1e-5 * scale + 1e-6
+
+
+@pytest.mark.parametrize("b,n,l,k,spread,steps", [
+    (1, 65, 13, 15, 300, 3), (2, 1000, 20, 31, 90, 10),
+    (1, 300, 50, 31, 60, 4),
+])
+def test_discrete_core_backward_matches_plain_autograd(dev, b, n, l, k,
+                                                       spread, steps):
+    """The Function (K9, K13 forward; K14, K12 backward) against autograd
+    through the plain versions, from a non-contiguous output gradient."""
+    rng = np.random.default_rng(32)
+    p, u, w, idx, c = _discrete_inputs(rng, b, n, l, k, spread, dev)
+    ts = [t.clone().requires_grad_() for t in (p, u, w, c)]
+    g = torch.randn(b, l, n, device=dev)
+    out = discrete_core.discrete_core(ts[0], ts[1], ts[2], idx, ts[3], steps)
+    got = torch.autograd.grad((out.transpose(1, 2) * g).sum(), ts)
+    out_ref = discrete_core.discrete_core_plain(ts[0], ts[1], ts[2], idx,
+                                                ts[3], steps)
+    assert float((out - out_ref).abs().max()) <= 1e-5
+    ref = torch.autograd.grad((out_ref.transpose(1, 2) * g).sum(), ts)
+    for name, a, r in zip(("dp", "du", "dw", "dC"), got, ref):
+        # atomics and the neighbour dot sum in another order; errors grow
+        # through the steps with the operator's norm
+        torch.testing.assert_close(a, r, rtol=1e-4,
+                                   atol=1e-5 * float(r.abs().max()),
+                                   msg=name)
+
+
+def test_discrete_kernels_raise_under_grad(dev):
+    rng = np.random.default_rng(33)
+    q, u, w, idx, c = _discrete_inputs(rng, 1, 128, 20, 7, 40, dev)
+    col = crf_core.crf_operator(idx)
+    with pytest.raises(RuntimeError, match="no backward"):
+        discrete_core.discrete_iterate(q.requires_grad_(), u, w, col, c)
+    with pytest.raises(ValueError):   # never in place
+        discrete_core.discrete_iterate(u, u, w, col, c, out=u)
+    with pytest.raises(ValueError):   # too many classes
+        big = torch.zeros(1, 128, 129, device=dev)
+        discrete_core.discrete_iterate(big, big, w, col,
+                                       torch.zeros(129, 129, device=dev))

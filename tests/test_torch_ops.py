@@ -22,6 +22,18 @@ from crfconv_tpu.ops import windowed as jwin
 from crfconv_tpu_torch.ops import crf, crf_core, morton, neighbors, windowed
 from crfconv_tpu_torch.ops.neighbors import NeighborMode
 
+
+@pytest.fixture(autouse=True, scope="module")
+def few_torch_threads():
+    """Two intra-op threads for the port's CPU ops: with one torch pool of
+    every core in each of several test processes, the pools' workers
+    crowd each other out and a 0.4 s forward takes tens of seconds."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(min(n, 2))
+    yield
+    torch.set_num_threads(n)
+
+
 REPO = Path(__file__).resolve().parents[1]
 WINDOWED = NeighborMode("windowed")
 

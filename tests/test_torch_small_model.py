@@ -29,6 +29,7 @@ from tests.test_torch_model import (
     RNGS, WINDOWED, _apply, _init, _load, _perturb_stats, _pyramid, _scales,
     _sorted_cloud, _t,
 )
+from tests.test_torch_ops import few_torch_threads  # noqa: F401
 from tests.test_torch_ops import jax_offsets
 from tests.test_torch_train_step import _exact_windowed_gather
 

@@ -26,6 +26,7 @@ from crfconv_tpu_torch.train.config import CONFIGS, ScanNetConfig
 from crfconv_tpu_torch.train.train_state import (
     TrainState, build_windowed_batch, make_eval_step, make_train_step,
 )
+from tests.test_torch_ops import few_torch_threads  # noqa: F401
 from tests.test_torch_ops import jax_offsets
 from tests.test_torch_train_step import _exact_windowed_gather, _f64
 

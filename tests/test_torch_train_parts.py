@@ -288,6 +288,8 @@ def test_no_module_of_the_port_imports_jax():
         "for m in mods + ['chip_smoke']:\n"
         "    importlib.import_module(m)\n"
         "assert 'crfconv_tpu_torch.train.train_state' in mods, mods\n"
+        "assert {'crfconv_tpu_torch.ops.discrete_core',\n"
+        "        'crfconv_tpu_torch.models.discrete_crf'} <= set(mods), mods\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in\n"
         "       ('jax', 'jaxlib', 'flax', 'optax', 'crfconv_tpu')\n"
         "       and sys.modules[m] is not None]\n"

@@ -26,6 +26,7 @@ from crfconv_tpu_torch.ops.neighbors import NeighborMode
 from crfconv_tpu_torch.train.train_state import (
     TrainState, build_windowed_batch, make_eval_step, make_train_step,
 )
+from tests.test_torch_ops import few_torch_threads  # noqa: F401
 from tests.test_torch_ops import jax_offsets
 
 NARROW = (16, 32, 64, 128, 256)
