@@ -60,6 +60,27 @@
     calls are held against the plain versions; SEMANTIC3D_REQUESTS requests
     through Predictor with exact launch counts (K5 on conv2_1 and
     conv3_1); a kernel-vs-plain forward; a profile and peak memory.
+16. Flagship exact serving (the exact neighbour regime, B8 x 8192): a
+    recorded warm-up request (build_pyramid_device, then the forward in
+    NeighborMode("exact")) whose K6 calls are held bit-equal against the
+    plain version, exact and, where the row is at most 1024 wide, packed;
+    EXACT_REQUESTS requests with exact launch counts (K6 10, every other
+    kernel 0) and column 0 == self on >= 0.999 of every scale's rows;
+    request, pyramid and forward times, a profile and peak memory.
+17. Flagship exact train step on a pyramid built once: TRAIN_STEPS steps of
+    make_train_step(NeighborMode("exact"), windowed=False), no kernel
+    launched, a finite loss, every parameter moved; step time, phases,
+    train points/s; one exact eval step.
+18. Windowed 2-view eval (make_eval_step(eval_views=2), B8 x 8192): launch
+    counts per eval (K1 30, K2 20, K3 4, K4 2), probabilities finite and
+    normalised, and against the same eval with K1, K3 and K4 replaced by
+    their plain versions.
+19. ScanNet-discrete exact serving (BaselineDiscreteCRFSegNet(20 classes,
+    steps=10), B16 x 8192, ScanNet's kernel sizes, ratios and k_up = 3):
+    a recorded warm-up request whose K6 calls are held bit-equal;
+    DISCRETE_REQUESTS requests with K6 11 launches each (10 pyramid + the
+    CRF's kNN(32)) and no other kernel; a kernel-vs-plain forward; times,
+    a profile and peak memory.
 
 Prints the card's name and power limit, one JSON line of kernel results
 and, last, {"ok": true, "device": {...}}. Exits non-zero, without that
@@ -100,6 +121,7 @@ EXPECTED_PER_REQUEST = {
     "point_conv_fused_strided": 0,   # conv2_1 has 2048 < 4096 rows
     "crf_operator": 0,          # steps = 1: no fused CRF core
     "crf_iterate": 0,
+    "select_min_k": 0,        # the exact regime only
 }
 # launches of each kernel per B8 x 8192 train step (pyramid, forward,
 # backward): K8 is the backward of every K1 gather whose source needs a
@@ -115,6 +137,7 @@ EXPECTED_PER_STEP = {
     "crf_iterate": 0,
     "crf_iterate_bwd": 0,
     "crf_neighbor_dot": 0,
+    "select_min_k": 0,        # the exact regime only
 }
 SCANNET_REQUESTS = 3
 # launches per B16 x 8192 ScanNet request with CRFSegNet(steps=10): K1 is
@@ -133,6 +156,7 @@ SCANNET_PER_REQUEST = {
     "crf_iterate": 4 * 10,
     "crf_iterate_bwd": 0,
     "crf_neighbor_dot": 0,
+    "select_min_k": 0,
 }
 # per ScanNet train step: the forward's, and in the backward K8 for every
 # gather whose source needs a gradient (not the 4 + 4 gathers of
@@ -164,6 +188,7 @@ DISCRETE_PER_REQUEST = {
     "crf_neighbor_dot": 0,
     "discrete_iterate": 10,
     "discrete_iterate_bwd": 0,
+    "select_min_k": 0,        # the exact regime only
 }
 # per ScanNet-discrete train step: the forward's, and in the backward K8 for
 # every gather whose source needs a gradient (not the 4 + 1 of positions),
@@ -174,6 +199,17 @@ DISCRETE_PER_STEP = {
     "discrete_iterate_bwd": 10,
     "crf_neighbor_dot": 1,
 }
+EXACT_REQUESTS = 3
+EXACT = None    # NeighborMode("exact"), set in main() after the import check
+# launches per exact-regime request: K6 selects every kNN of the pyramid (a
+# same-scale and an upsample search per scale), plus the discrete CRF's
+# kNN(32); no other kernel runs in the exact regime (its gathers are plain
+# index gathers, its CRFs the scans)
+EXACT_PER_REQUEST = {"select_min_k": 10}
+DISCRETE_EXACT_PER_REQUEST = {"select_min_k": 11}
+# per windowed 2-view eval: twice a flagship request's launches
+TWO_VIEW_PER_EVAL = {"windowed_gather": 30, "window_knn": 20,
+                     "point_conv_fused_infer": 4, "crf_similarity_message": 2}
 SEMANTIC3D_REQUESTS = 3
 # launches per B16 x 65536 Semantic3D request: every eval PointConv with at
 # least 4096 output rows and hidden width <= 32 runs fused, the same-scale
@@ -193,6 +229,7 @@ SEMANTIC3D_PER_REQUEST = {
     "crf_operator": 0,
     "crf_iterate": 0,
     "discrete_iterate": 0,
+    "select_min_k": 0,        # the exact regime only
 }
 REPLACES = {
     "windowed_gather": "crfconv_tpu/ops/windowed_pallas.py:448",
@@ -208,7 +245,13 @@ REPLACES = {
     "point_conv_fused_strided": "crfconv_tpu/ops/conv_pallas.py:258",
     "discrete_iterate": "crfconv_tpu/ops/crf_pallas.py:690",
     "discrete_iterate_bwd": "crfconv_tpu/ops/crf_pallas.py:1383",
+    "select_min_k": "crfconv_tpu/ops/windowed_pallas.py:285",
 }
+
+
+def only(counts: dict) -> dict:
+    """Expected launches: ``counts``, and 0 for every other kernel."""
+    return {name: counts.get(name, 0) for name in REPLACES}
 
 FAILURES = []
 # kernels whose every replayed call was bit-equal to the plain version
@@ -216,6 +259,8 @@ BIT_EQUAL = {}
 # largest fraction of its rounding bound that a kernel (and its plain
 # version) reached, over the calls of one phase: {kernel: [kernel, plain]}
 OF_BOUND = {}
+# widths of the K6 calls also held in packed mode
+PACKED_CHECKED = []
 # launches of each kernel in each main path: {kernel: {path: count}}
 LAUNCHES = {name: {} for name in REPLACES}
 
@@ -401,6 +446,8 @@ def bound_of(name, args, out):
         h = x.shape[2]
         # the weight MLP and the product per neighbour, the rider's max
         ops = b * m * k * (2 * h * h + 11 * h + 3 + res.shape[2])
+    elif name == "select_min_k":
+        ops = args[0].numel()              # a comparison per entry
     elif name in ("discrete_iterate", "discrete_iterate_bwd"):
         q, w = args[0], args[3]
         b, n, l = q.shape
@@ -444,6 +491,20 @@ def compare(name, args, got, ref):
             self_ok = bool((got[:, :, 0] == torch.arange(
                 got.shape[1], device=got.device)).all())
             expect(self_ok, "window_knn: column 0 is not self")
+        return float((got.long() - ref.long()).abs().max())
+    if name == "select_min_k":
+        # distinct keys: one order, bit for bit; packed too where the row
+        # is at most 1024 wide
+        from crfconv_tpu_torch.ops.windowed import (
+            PACKED_MAX_WIDTH, select_min_k, select_min_k_plain,
+        )
+        d, k = args[0], args[1]
+        expect(torch.equal(got, ref), "select_min_k: not bit-equal")
+        if d.shape[-1] <= PACKED_MAX_WIDTH:
+            PACKED_CHECKED.append(d.shape[-1])
+            expect(torch.equal(select_min_k(d, k, False),
+                               select_min_k_plain(d, k, False)),
+                   "select_min_k: packed mode not bit-equal")
         return float((got.long() - ref.long()).abs().max())
     if name == "windowed_weighted_reduce":   # one order of the k-sum
         expect(torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1]),
@@ -585,6 +646,10 @@ def library_call(name, args):
         b_ix = torch.arange(x.shape[0], device=x.device)[:, None, None]
         gidx = idx.long()
         return lambda: x[b_ix, gidx]
+    if name == "select_min_k":
+        # the same set; torch.topk's order among ties is not guaranteed
+        d, k = args[0], args[1]
+        return lambda: torch.topk(d, k, dim=-1, largest=False)
     if name == "windowed_gather_bwd":
         g, idx, n = args[0], args[1], args[2]
         b, f = g.shape[0], g.shape[-1]
@@ -753,10 +818,12 @@ def snapshot(model) -> dict:
     return {n: t.detach().clone() for n, t in model.state_dict().items()}
 
 
-def step_phases_ms(state, raw, gen, label_offset: int = 0):
+def step_phases_ms(state, raw, gen, label_offset: int = 0, mode=None):
     """One train step in make_train_step's order, with a synchronize after
     each phase: host ms of (pyramid, forward + loss, backward, optimizer).
-    The confusion matrix, a few small kernels, is left out."""
+    The confusion matrix, a few small kernels, is left out. With ``mode``
+    (a built pyramid's regime) ``raw`` is that PointBatch and the pyramid
+    phase is empty."""
     from crfconv_tpu_torch.train.losses import segmentation_loss
     from crfconv_tpu_torch.train.train_state import (
         TRAIN_MODE, build_windowed_batch,
@@ -770,9 +837,13 @@ def step_phases_ms(state, raw, gen, label_offset: int = 0):
         marks.append(time.perf_counter())
 
     state.model.train()
-    batch = build_windowed_batch(raw, gen, mode=TRAIN_MODE)
+    if mode is None:
+        mode = TRAIN_MODE
+        batch = build_windowed_batch(raw, gen, mode=TRAIN_MODE)
+    else:
+        batch = raw
     mark()
-    out = state.model(batch, TRAIN_MODE, dropout_generator=gen)
+    out = state.model(batch, mode, dropout_generator=gen)
     loss = segmentation_loss(out, batch.y - label_offset)
     mark()
     state.optimizer.zero_grad(set_to_none=True)
@@ -1779,7 +1850,367 @@ def semantic3d_phases(dev, rng, out_dir: str, results: dict) -> dict:
     }
 
 
+# --------------------------------------------------------------------------
+# the exact regime: K6 under the device kNN; the windowed 2-view eval
+# --------------------------------------------------------------------------
+
+
+def self_share(scales) -> float:
+    """The least share, over the scales, of rows whose column 0 is the row
+    itself (a TF32 cross term would move the self-distance off 0)."""
+    shares = []
+    for s in scales:
+        rows = torch.arange(s.neighbor_idx.shape[1], device=s.neighbor_idx.device)
+        shares.append(float((s.neighbor_idx[:, :, 0] == rows).float().mean()))
+    return min(shares)
+
+
+def exact_serve_path(label, make_request, serve, n_requests, expected,
+                     check_out, out_dir):
+    """An exact-regime serving path: a recorded warm-up request whose K6
+    calls are held against the plain version, then ``n_requests`` requests
+    with exact launch counts, column 0 == self, ``check_out`` on each
+    output, request / pyramid / forward times, a kernel-vs-plain forward
+    (K6 plain in the forward), a profile and the peak memory. ``serve(pos,
+    feats)`` returns (output, scales); ``serve(pos, feats, scales)`` runs
+    the forward alone."""
+    from crfconv_tpu_torch import cuda_build
+    from crfconv_tpu_torch.ops import neighbors, windowed
+
+    # the site through which knn_bruteforce reaches K6
+    sites = {"select_min_k": (neighbors, "select_min_k", windowed.select_min_k,
+                              windowed.select_min_k_plain)}
+    pos, feats = make_request()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    calls = record_calls(sites, lambda: serve(pos, feats))
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    got = len(calls["select_min_k"])
+    expect(got == expected["select_min_k"],
+           f"{label}: {got} K6 calls per request, expected "
+           f"{expected['select_min_k']}")
+    results = {}
+    PACKED_CHECKED.clear()
+    run_phases(results, f"{label} serve", sites, calls)
+    packed = sorted(set(PACKED_CHECKED))
+    del calls
+    torch.cuda.empty_cache()
+
+    reqs = [make_request() for _ in range(n_requests)]
+    torch.cuda.synchronize()
+    cuda_build.reset_launch_counts()
+    lat, outs = [], []
+    for p_, f_ in reqs:
+        t0 = time.perf_counter()
+        out, scales = serve(p_, f_)
+        torch.cuda.synchronize()
+        lat.append(time.perf_counter() - t0)
+        outs.append((out, self_share(scales)))
+        del scales
+    record_launches(f"{label} serve", cuda_build.launch_counts(),
+                    only(expected), n_requests, "requests")
+    shares = [sh for _, sh in outs]
+    expect(min(shares) >= 0.999, f"{label}: column 0 is self on only "
+           f"{min(shares)} of a scale's rows")
+    for out, _ in outs:
+        check_out(out)
+    del outs
+    b, n = reqs[0][0].shape[:2]
+    pts_s = n_requests * b * n / sum(lat)
+    print(f"# {label}: served {n_requests} requests of {b}x{n}: "
+          f"{[round(t * 1e3, 3) for t in lat]} ms, {pts_s:.1f} points/s; "
+          f"column 0 == self on >= {min(shares)} of every scale's rows; "
+          f"peak memory of a request {peak:.2f} GiB", flush=True)
+
+    p_, f_ = reqs[0]
+    _, scales = serve(p_, f_)
+    with torch.inference_mode():
+        pyramid_ms = median_ms(lambda: serve.pyramid(p_), runs=5)
+        forward_ms = median_ms(lambda: serve(p_, f_, scales), runs=5)
+        request_ms = median_ms(lambda: serve(p_, f_), runs=5)
+        got_out = serve(p_, f_, scales)
+        with patched([(neighbors, "select_min_k",
+                       windowed.select_min_k_plain)]):
+            ref_out = serve(p_, f_, scales)
+    torch.cuda.synchronize()
+    d_out = float((got_out - ref_out).abs().max())
+    scale = float(ref_out.abs().max())
+    # the forward's only kernel in the exact regime is K6 (the discrete
+    # CRF's kNN(32)), bit-equal to its plain version
+    expect(d_out <= 1e-5 * max(1.0, scale),
+           f"{label} kernel vs plain forward: max |d| {d_out}")
+    print(f"# {label} one request: {request_ms:.3f} ms (pyramid "
+          f"{pyramid_ms:.3f} ms, forward {forward_ms:.3f} ms); forward "
+          f"kernels vs plain max |d| {d_out:.3g} (max |out| {scale:.3g})",
+          flush=True)
+    del got_out, ref_out, scales
+    with torch.inference_mode():
+        profile, busy = profile_phase(
+            f"{label} profiler", lambda: serve(p_, f_),
+            os.path.join(out_dir, f"chip_smoke_{label}_trace.json"),
+            "request", request_ms,
+        )
+    torch.cuda.empty_cache()
+    return results, {
+        "requests_ms": [t * 1e3 for t in lat],
+        "points_per_s": pts_s,
+        "request_ms": request_ms,
+        "pyramid_ms": pyramid_ms,
+        "forward_ms": forward_ms,
+        "max_abs_dforward": d_out,
+        "self_share_min": min(shares),
+        "packed_checked_widths": packed,
+        "peak_gib": peak,
+        "kernel_busy_ms": busy,
+        "profile": profile[:40],
+        "calls_per_request": only(expected),
+    }
+
+
+class ExactServer:
+    """A request of the exact regime: build_pyramid_device on the card (its
+    subsample drawn from a generator seeded with SEED, as the Predictor
+    seeds its own), then the forward in NeighborMode("exact"), under
+    inference_mode; ``head`` picks the served output."""
+
+    def __init__(self, model, dev, kernel_sizes=None, ratios=None, k_up=1,
+                 head=None):
+        self.model, self.dev, self.k_up, self.head = model, dev, k_up, head
+        self.pyr_kw = {}
+        if kernel_sizes is not None:
+            self.pyr_kw = {"kernel_sizes": kernel_sizes, "ratios": ratios}
+
+    def pyramid(self, pos):
+        from crfconv_tpu_torch import build_pyramid_device
+
+        gen = torch.Generator(device=self.dev).manual_seed(SEED)
+        return build_pyramid_device(pos, k_up=self.k_up, generator=gen,
+                                    device=self.dev, **self.pyr_kw)
+
+    def __call__(self, pos, feats, scales=None):
+        from crfconv_tpu_torch.data.batch import PointBatch
+
+        with torch.inference_mode():
+            built = scales is None
+            if built:
+                scales = self.pyramid(pos)
+            out = self.model(PointBatch(x=feats, y=None, scales=scales),
+                             EXACT)
+            if self.head is not None:
+                out = out[self.head]
+            return (out, scales) if built else out
+
+
+def exact_phases(dev, rng, out_dir: str, results: dict) -> dict:
+    """Phases 16-17: the flagship's exact serving and train step; adds K6's
+    phases to ``results``; returns the measurements."""
+    from crfconv_tpu_torch import (
+        build_pyramid_device, cuda_build, make_eval_step, make_train_step,
+    )
+    from crfconv_tpu_torch.data.batch import PointBatch
+
+    model = make_model(dev)
+
+    def check_logits(logits):
+        expect(tuple(logits.shape) == (B, N, N_CLASSES),
+               f"exact logits shape {tuple(logits.shape)}")
+        expect(bool(torch.isfinite(logits).all()), "exact: non-finite logits")
+
+    serve = ExactServer(model, dev)
+    phases, serving = exact_serve_path(
+        "exact", lambda: request(rng, dev), serve, EXACT_REQUESTS,
+        EXACT_PER_REQUEST, check_logits, out_dir)
+    for name, r in phases.items():
+        results.setdefault(name, []).extend(r)
+    del model, serve
+    torch.cuda.empty_cache()
+
+    # 17. the train step on a pyramid built once, as the reference's exact
+    # train bench builds it
+    state = make_train_state(dev)
+    raw = train_batch(rng, dev)
+    scales = build_pyramid_device(
+        raw.pos, generator=torch.Generator(device=dev).manual_seed(SEED),
+        device=dev)
+    batch = PointBatch(x=raw.x, y=raw.y, scales=scales)
+    train_step = make_train_step(EXACT, windowed=False)
+    train_step(state, batch, step_generator(dev, 0))     # warm-up
+    params = dict(state.model.named_parameters())
+    before = snapshot(state.model)
+    gens = [step_generator(dev, 1 + i) for i in range(TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cuda_build.reset_launch_counts()
+    step_s, losses = [], []
+    for i in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        m = train_step(state, batch, gens[i])
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        losses.append(float(m["loss"]))
+        expect(np.isfinite(losses[-1]), f"exact step {i}: loss {losses[-1]}")
+        bad = [nm for nm, p in params.items()
+               if p.grad is None or not bool(torch.isfinite(p.grad).all())
+               or not bool(p.grad.any())]
+        expect(not bad, f"exact step {i}: no, non-finite or all-zero "
+               f"gradient {bad[:4]}")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    record_launches("exact train", cuda_build.launch_counts(), only({}),
+                    TRAIN_STEPS, "steps")
+    after = snapshot(state.model)
+    still = [nm for nm in params if torch.equal(before[nm], after[nm])]
+    expect(not still, f"exact: parameters that did not move: {still[:4]}")
+    pts_s = TRAIN_STEPS * B * N / sum(step_s)
+    gen = step_generator(dev, 50)
+    step_ms = median_ms(lambda: train_step(state, batch, gen), runs=3,
+                        warmup=1)
+    split = np.median([step_phases_ms(state, batch, gen, mode=EXACT)
+                       for _ in range(3)], axis=0)
+    print(f"# exact: trained {TRAIN_STEPS} steps of {B}x{N} on one pyramid: "
+          f"{[round(t * 1e3, 3) for t in step_s]} ms, {pts_s:.1f} points/s, "
+          f"loss {[round(v, 5) for v in losses]}, peak memory {peak:.2f} GiB;"
+          f" one step {step_ms:.3f} ms (events, median of 3), phases "
+          f"forward+loss {split[1]:.3f}, backward {split[2]:.3f}, optimizer "
+          f"{split[3]:.3f} ms", flush=True)
+    profile, busy = profile_phase(
+        "exact train profiler", lambda: train_step(state, batch, gen),
+        os.path.join(out_dir, "chip_smoke_exact_train_trace.json"), "step",
+        step_ms,
+    )
+    cuda_build.reset_launch_counts()
+    ev = make_eval_step(EXACT, windowed=False)(state, batch)
+    torch.cuda.synchronize()
+    expect(not any(cuda_build.launch_counts().values()),
+           f"exact eval launched {cuda_build.launch_counts()}")
+    probs = ev["probs"]
+    expect(tuple(probs.shape) == (B, N, N_CLASSES)
+           and bool(torch.isfinite(probs).all())
+           and float((probs.sum(-1) - 1).abs().max()) <= 1e-5,
+           "exact eval: probabilities not finite or not normalised")
+    print(f"# exact eval step: loss {float(ev['loss']):.5f}", flush=True)
+    del state, batch, scales, ev
+    torch.cuda.empty_cache()
+    return {
+        "config": {"model": "PointConvResNet", "batch": B, "points": N,
+                   "classes": N_CLASSES, "steps": 1, "mode": "exact"},
+        **serving,
+        "train_steps_ms": [t * 1e3 for t in step_s],
+        "train_points_per_s": pts_s,
+        "train_losses": losses,
+        "train_step_ms": step_ms,
+        "train_phases_ms": dict(zip(
+            ("pyramid", "forward_loss", "backward", "optimizer"),
+            map(float, split))),
+        "train_peak_gib": peak,
+        "train_kernel_busy_ms": busy,
+        "train_profile": profile[:40],
+    }
+
+
+def two_view_phase(dev, rng, out_dir: str) -> dict:
+    """Phase 18: the windowed 2-view eval of the flagship at B8 x 8192."""
+    from crfconv_tpu_torch import TrainState, cuda_build, make_eval_step
+    from crfconv_tpu_torch.models import crf_conv, point_conv_big
+    from crfconv_tpu_torch.ops import conv, crf_sim, neighbors, windowed
+    from crfconv_tpu_torch.train.train_state import TRAIN_MODE
+
+    state = TrainState.create(make_model(dev), lr=LR)
+    raw = train_batch(rng, dev)
+    eval_step = make_eval_step(TRAIN_MODE, eval_views=2)
+
+    def run():
+        return eval_step(state, raw, step_generator(dev, 300))
+
+    run()                                              # warm-up
+    torch.cuda.synchronize()
+    cuda_build.reset_launch_counts()
+    t0 = time.perf_counter()
+    got = run()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    record_launches("two-view eval", cuda_build.launch_counts(),
+                    only(TWO_VIEW_PER_EVAL), 1, "evals")
+    probs = got["probs"]
+    norm = float((probs.sum(-1) - 1).abs().max())
+    expect(tuple(probs.shape) == (B, N, N_CLASSES)
+           and bool(torch.isfinite(probs).all()) and norm <= 1e-5,
+           f"two-view eval: probabilities not finite or off normal by {norm}")
+    # K1, K3 and K4 by their plain versions, on the same pyramids (K2, held
+    # on its own calls, stays: a last-bit distance tie would move a
+    # neighbour, not test the rest)
+    plain = [(neighbors, "windowed_gather", windowed.windowed_gather_plain),
+             (point_conv_big, "point_conv_fused_infer",
+              conv.point_conv_fused_infer_plain),
+             (crf_conv, "crf_similarity_message",
+              crf_sim.crf_similarity_message_plain)]
+    with patched(plain):
+        ref = run()
+    torch.cuda.synchronize()
+    d_probs = float((probs - ref["probs"]).abs().max())
+    # the 1-view forward read 7.45e-8 of max|logit| kernels vs plain
+    expect(d_probs <= 1e-5, f"two-view eval kernels vs plain: max |dprobs| "
+           f"{d_probs}")
+    eval_ms = median_ms(run, runs=5)
+    print(f"# two-view eval of {B}x{N}: {eval_ms:.3f} ms (events, median of "
+          f"5; host {host_ms:.3f} ms), probabilities off normal by "
+          f"{norm:.3g}, kernels vs plain max |dprobs| {d_probs:.3g}, loss "
+          f"{float(got['loss']):.5f}", flush=True)
+    profile, busy = profile_phase(
+        "two-view profiler", run,
+        os.path.join(out_dir, "chip_smoke_two_view_trace.json"), "eval",
+        eval_ms,
+    )
+    del state, raw, got, ref
+    torch.cuda.empty_cache()
+    return {
+        "eval_ms": eval_ms,
+        "points_per_s": B * N / (eval_ms / 1e3),
+        "max_abs_dprobs": d_probs,
+        "probs_off_normal": norm,
+        "kernel_busy_ms": busy,
+        "profile": profile[:40],
+        "calls_per_eval": only(TWO_VIEW_PER_EVAL),
+    }
+
+
+def discrete_exact_phase(dev, rng, out_dir: str, results: dict) -> dict:
+    """Phase 19: ScanNet-discrete served in the exact regime."""
+    cfg = scannet_config()
+    b, n, n_cls = cfg.batch_size, cfg.sample_num, cfg.num_classes
+    gen = torch.Generator().manual_seed(SEED + 17)
+    model = randomize_batch_norms(discrete_model(cfg, dev), gen)
+    with torch.no_grad():   # compatibilities away from the identity
+        model.crf.C.add_(0.1 * torch.randn(model.crf.C.shape,
+                                           generator=gen).to(dev))
+
+    def check_logq(logq):
+        expect(tuple(logq.shape) == (b, n, n_cls),
+               f"discrete exact log q shape {tuple(logq.shape)}")
+        expect(bool(torch.isfinite(logq).all()),
+               "discrete exact: non-finite log q")
+        norm = float(torch.logsumexp(logq, -1).abs().max())
+        expect(norm <= 1e-4, f"discrete exact: log q off normal by {norm}")
+
+    serve = ExactServer(model, dev, cfg.kernel_sizes, cfg.ratios, cfg.k_up,
+                        head=-1)
+    phases, serving = exact_serve_path(
+        "discrete_exact", lambda: scannet_cloud(cfg, rng, dev), serve,
+        DISCRETE_REQUESTS, DISCRETE_EXACT_PER_REQUEST, check_logq, out_dir)
+    for name, r in phases.items():
+        results.setdefault(name, []).extend(r)
+    del model, serve
+    torch.cuda.empty_cache()
+    return {
+        "config": {"model": "BaselineDiscreteCRFSegNet", "batch": b,
+                   "points": n, "classes": n_cls, "steps": cfg.steps,
+                   "k_up": cfg.k_up, "mode": "exact"},
+        **serving,
+    }
+
+
 def main() -> int:
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("FAIL: torch.cuda.is_available() is false", file=sys.stderr)
         return 2
@@ -1790,9 +2221,11 @@ def main() -> int:
         print(f"FAIL: crfconv_tpu_torch not importable beside {__file__}: "
               f"{e}", file=sys.stderr)
         return 2
-    from crfconv_tpu_torch import Predictor, cuda_build
+    from crfconv_tpu_torch import NeighborMode, Predictor, cuda_build
     from crfconv_tpu_torch.serve import SERVING_MODE
 
+    global EXACT
+    EXACT = NeighborMode("exact")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device(DEVICE)
@@ -1911,12 +2344,17 @@ def main() -> int:
     torch.cuda.empty_cache()
     discrete = discrete_phases(dev, rng, out_dir, results)
     semantic3d = semantic3d_phases(dev, rng, out_dir, results)
+    torch.cuda.empty_cache()
+    exact = exact_phases(dev, rng, out_dir, results)
+    two_view = two_view_phase(dev, rng, out_dir)
+    discrete_exact = discrete_exact_phase(dev, rng, out_dir, results)
 
-    # launches: the sum over the seven main paths (flagship serve and train,
-    # ScanNet serve and train, ScanNet-discrete serve and train, Semantic3D
-    # serve). The times are those of the first path whose calls were held
-    # against the plain version; every path's are in "phases", and
-    # max_abs_err is the largest over them
+    # launches: the sum over the eleven main paths (flagship serve and
+    # train, ScanNet serve and train, ScanNet-discrete serve and train,
+    # Semantic3D serve, flagship exact serve and train, the 2-view eval,
+    # ScanNet-discrete exact serve). The times are those of the first path
+    # whose calls were held against the plain version; every path's are in
+    # "phases", and max_abs_err is the largest over them
     kernels = []
     for name in REPLACES:
         phases = results[name]
@@ -1955,8 +2393,13 @@ def main() -> int:
         "scannet": scannet,
         "discrete": discrete,
         "semantic3d": semantic3d,
+        "exact": exact,
+        "two_view": two_view,
+        "discrete_exact": discrete_exact,
         "failures": FAILURES,
+        "script_s": time.perf_counter() - t_start,
     }
+    print(f"# chip_smoke.py took {summary['script_s']:.1f} s", flush=True)
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as fh:
         json.dump(summary, fh, indent=1)
 

@@ -3,20 +3,24 @@
 The flagship continuous-CRF point-convolution U-Net and the small
 family's ``CRFSegNet`` (continuous CRF at any number of mean-field steps),
 ``BaselineDiscreteCRFSegNet`` and ``DualCRFSegNet`` (a discrete CRF head)
-served and trained on an NVIDIA H100, with the windowed regime's kernels
-written by hand in CUDA C++ (``csrc/``, built on first use by
+served and trained on an NVIDIA H100, in the windowed neighbour regime
+and in the exact one (``knn_bruteforce``, ``build_pyramid_device``), with
+every kernel written by hand in CUDA C++ (``csrc/``, built on first use by
 ``cuda_build``). On CPU tensors every kernel wrapper runs its plain
 PyTorch version.
 """
 
 from crfconv_tpu_torch.convert import from_flax
 from crfconv_tpu_torch.data.batch import RawBatch
+from crfconv_tpu_torch.data.pipeline import build_pyramid_device
 from crfconv_tpu_torch.models.point_conv_big import PointConvResNet
 from crfconv_tpu_torch.models.segnets import (
     BaselineDiscreteCRFSegNet, BaselineSegNet, CRFSegNet, DualCRFSegNet,
 )
-from crfconv_tpu_torch.ops.neighbors import NeighborMode
-from crfconv_tpu_torch.ops.windowed import build_pyramid_windowed
+from crfconv_tpu_torch.ops.neighbors import NeighborMode, knn_bruteforce
+from crfconv_tpu_torch.ops.windowed import (
+    build_pyramid_windowed, select_min_k,
+)
 from crfconv_tpu_torch.serve import Predictor
 from crfconv_tpu_torch.train.checkpoint import CheckpointManager
 from crfconv_tpu_torch.train.train_state import (
@@ -34,8 +38,11 @@ __all__ = [
     "Predictor",
     "RawBatch",
     "TrainState",
+    "build_pyramid_device",
     "build_pyramid_windowed",
     "from_flax",
+    "knn_bruteforce",
     "make_eval_step",
     "make_train_step",
+    "select_min_k",
 ]

@@ -153,11 +153,16 @@ DISCRETE_ITERATE_BWD = Kernel(
     "discrete_iterate_bwd", "discrete_iterate_bwd.cu",
     "discrete_iterate_bwd_f32", [_P] * 11 + [_I] * 4 + [_P],
 )
+SELECT_MIN_K = Kernel(
+    "select_min_k", "select_min_k.cu", "select_min_k_f32",
+    [_P, _P, ctypes.c_longlong, _I, _I, _I, _P],
+)
 KERNELS = (
     WINDOWED_GATHER, WINDOW_KNN, POINT_CONV_FUSED_INFER,
     CRF_SIMILARITY_MESSAGE, WINDOWED_WEIGHTED_REDUCE, WINDOWED_GATHER_BWD,
     CRF_OPERATOR, CRF_ITERATE, CRF_ITERATE_BWD, CRF_NEIGHBOR_DOT,
     POINT_CONV_FUSED_STRIDED, DISCRETE_ITERATE, DISCRETE_ITERATE_BWD,
+    SELECT_MIN_K,
 )
 
 

@@ -26,7 +26,7 @@ from crfconv_tpu_torch.models.point_conv_small import (
     SmallBaselineNet, SmallCRFNet,
 )
 from crfconv_tpu_torch.ops import windowed
-from crfconv_tpu_torch.ops.neighbors import NeighborMode
+from crfconv_tpu_torch.ops.neighbors import NeighborMode, knn_bruteforce
 
 # the discrete CRF's neighbourhood: the reference's radius_graph(r = 0.2,
 # max_num_neighbors = 32) as kNN(32) plus the radius mask in DiscreteCRFConv
@@ -35,14 +35,14 @@ DISCRETE_CRF_K = 32
 
 def _discrete_crf_idx(pos: torch.Tensor, mode: NeighborMode) -> torch.Tensor:
     """Self-inclusive kNN(32) at the finest scale, rebuilt per forward as
-    the reference rebuilds its graph, window-consistent in the windowed
-    regime (K2, with the pyramid's selection rule)."""
+    the reference rebuilds its graph: window-consistent in the windowed
+    regime (K2, with the pyramid's selection rule), else the exact kNN
+    (``knn_bruteforce``, K6 selecting)."""
+    k = min(DISCRETE_CRF_K, pos.shape[1])
     if not mode.windowed:
-        raise NotImplementedError(
-            "the exact regime's device kNN (knn_bruteforce) is not ported")
+        return knn_bruteforce(pos, pos, k)
     return windowed.window_knn_auto(
-        pos, min(DISCRETE_CRF_K, pos.shape[1]), tile=mode.tile, pad=mode.pad,
-        knn_exact=mode.knn_exact,
+        pos, k, tile=mode.tile, pad=mode.pad, knn_exact=mode.knn_exact,
     )
 
 

@@ -1,4 +1,5 @@
-"""Dense neighbour-index primitives and the gather regime.
+"""Dense neighbour-index primitives, the gather regime and the exact
+regime's device kNN.
 
 Counterpart of ``crfconv_tpu/ops/neighbors.py``. The JAX package keeps the
 regime in a process-wide dict; here it is a :class:`NeighborMode` value that
@@ -7,12 +8,25 @@ callers pass to the model and the Predictor.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
-from crfconv_tpu_torch.ops.windowed import PAD, TILE, windowed_gather
+from crfconv_tpu_torch.ops.windowed import (
+    PAD, TILE, select_min_k, windowed_gather,
+)
+
+# f32 elements of one (batch, query tile) distance block: the reference's
+# tile rule (a ~128 MB block)
+KNN_TILE_ELEMENTS = 128 * 1024 * 1024 // 4
+# Bytes of distance blocks that one K6 launch selects over; a larger call is
+# cut into chunks of (batch, query tile) blocks, a launch each. Every call
+# at S3DIS's B8 x 8192 and ScanNet's B16 x 8192 fits: the largest, the
+# kNN(32) of B16 x 8192 points, is exactly 4 GiB.
+KNN_BLOCK_BUDGET = 1 << 32
 
 
 @dataclasses.dataclass(frozen=True)
@@ -95,3 +109,83 @@ def knn_interpolate(
     w = 1.0 / torch.clamp(d2, min=eps)
     w = w / w.sum(dim=-1, keepdim=True)
     return torch.einsum("bnk,bnkf->bnf", w, nx)
+
+
+def _sq_norm(p: torch.Tensor) -> torch.Tensor:
+    """|p|^2 over the last axis, summed x, y, then z."""
+    x, y, z = p.unbind(-1)
+    return (x * x + y * y) + z * z
+
+
+@contextlib.contextmanager
+def _full_f32_matmul():
+    """float32 products in full float32 (no TF32) inside, whatever the
+    process has set; restored after. A process that set its precision
+    through the per-backend setting (``torch.backends.cuda.matmul.
+    fp32_precision``) cannot read the global one, and keeps to its own."""
+    try:
+        prev = torch.get_float32_matmul_precision()
+    except RuntimeError:
+        m = torch.backends.cuda.matmul
+        prev = m.fp32_precision
+        m.fp32_precision = "ieee"
+        try:
+            yield
+        finally:
+            m.fp32_precision = prev
+        return
+    torch.set_float32_matmul_precision("highest")
+    try:
+        yield
+    finally:
+        torch.set_float32_matmul_precision(prev)
+
+
+def knn_bruteforce(
+    support: torch.Tensor,
+    query: torch.Tensor,
+    k: int,
+    *,
+    tile: Optional[int] = None,
+    exact: bool = True,
+) -> torch.Tensor:
+    """Batched kNN by brute force: support [B, N, 3], query [B, M, 3] ->
+    [B, M, k] int32 indices into N, ascending distance, ties to the lowest
+    index (so column 0 is the query itself when query is support).
+
+    Counterpart of ``crfconv_tpu/ops/neighbors.py::knn_bruteforce``: the
+    queries are cut into tiles (the reference's rule: a ~128 MB block of
+    tile x N distances, at most 4096 rows, zero-padded to a whole tile),
+    each block is |q|^2 - 2 q.s + |s|^2 in that association, its cross term
+    in full float32 (a TF32 product moves the self-distance off 0 and
+    breaks column 0 == self), and kernel K6 selects. Blocks that fit
+    KNN_BLOCK_BUDGET together go to one K6 launch.
+
+    ``exact=False`` (the reference's ``approx_max_k``, recall >= a target)
+    takes the exact selection too, which meets any recall target.
+    """
+    del exact
+    B, N, _ = support.shape
+    M = query.shape[1]
+    if tile is None:
+        tile = max(min(KNN_TILE_ELEMENTS // max(N, 1), M, 4096), 8)
+    tile = min(tile, M)
+    nt = -(-M // tile)
+    q = F.pad(query, (0, 0, 0, nt * tile - M)).reshape(B * nt, tile, 3)
+    q_sq = _sq_norm(q)                                   # [B * nt, tile]
+    s_sq = _sq_norm(support)                             # [B, N]
+    per_launch = max(KNN_BLOCK_BUDGET // (tile * N * 4), 1)
+    out = []
+    for i0 in range(0, B * nt, per_launch):
+        i1 = min(i0 + per_launch, B * nt)
+        b_of = torch.arange(i0, i1, device=support.device) // nt
+        with _full_f32_matmul():
+            # |q|^2 + (-2) cross rounds once, as |q|^2 - 2 cross (the scale
+            # by -2 is exact); then + |s|^2
+            d = torch.baddbmm(q_sq[i0:i1, :, None], q[i0:i1],
+                              support[b_of].transpose(1, 2), alpha=-2.0)
+        d.add_(s_sq[b_of][:, None, :])
+        out.append(select_min_k(d[None], k)[0])
+        del d
+    idx = torch.cat(out).reshape(B, nt * tile, k)
+    return idx[:, :M].contiguous()

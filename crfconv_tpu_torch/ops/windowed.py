@@ -1,6 +1,7 @@
 """Windowed neighbourhood regime: window geometry, the window-clamped
 gather (kernel K1), the in-window kNN (kernel K2) and the device-side
-pyramid builder.
+pyramid; and the k-min selection over a distance block (kernel K6)
+that the exact regime's kNN (``ops/neighbors.py::knn_bruteforce``) runs.
 
 Counterpart of ``crfconv_tpu/ops/windowed.py``. Points are sorted by
 Morton code, so spatial neighbours are index neighbours; every 64-row
@@ -18,7 +19,8 @@ import torch
 import torch.nn.functional as F
 
 from crfconv_tpu_torch.cuda_build import (
-    WINDOW_KNN, WINDOWED_GATHER, WINDOWED_GATHER_BWD, WINDOWED_WEIGHTED_REDUCE,
+    SELECT_MIN_K, WINDOW_KNN, WINDOWED_GATHER, WINDOWED_GATHER_BWD,
+    WINDOWED_WEIGHTED_REDUCE,
 )
 from crfconv_tpu_torch.data.batch import ScaleData
 from crfconv_tpu_torch.ops._launch import (
@@ -29,7 +31,8 @@ from crfconv_tpu_torch.ops.morton import morton_order
 TILE = 64      # output rows per window tile
 PAD = 128      # extra candidate rows on each side of a tile
 # Packed-key selection is used up to this window width (wider windows
-# select exactly), as in the reference's dispatch.
+# select exactly), as in the reference's dispatch; it is also the widest
+# row K6's packed key (10 column bits) takes.
 PACKED_MAX_WIDTH = 1024
 
 
@@ -351,12 +354,18 @@ def window_knn(
     return out
 
 
+def _order_bits(d: torch.Tensor) -> torch.Tensor:
+    """The order-preserving int32 image of float32 d: bits ^ 0x7FFFFFFF
+    where the sign bit is set (-0.0 orders just below +0.0)."""
+    bits = d.view(torch.int32)
+    return bits ^ ((bits >> 31) & 0x7FFFFFFF)
+
+
 def _select_key(d: torch.Tensor, exact: bool) -> torch.Tensor:
     """int64 key (k32 << 32) + column whose order is the selection order:
     k32 is the order-preserving int32 image of d, with its low 11 bits
     cleared in packed mode."""
-    bits = (d + 0.0).view(torch.int32)        # + 0.0 turns -0 into +0
-    k32 = torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits)
+    k32 = _order_bits(d + 0.0)                # + 0.0 turns -0 into +0
     if not exact:
         k32 = k32 & -2048
     cols = torch.arange(d.shape[-1], device=d.device)
@@ -402,6 +411,59 @@ def window_knn_plain(
 
 
 # ---------------------------------------------------------------------------
+# K6: k-min selection over a distance block
+# ---------------------------------------------------------------------------
+
+
+def select_min_k(d: torch.Tensor, k: int, exact: bool = True) -> torch.Tensor:
+    """Columns of the k smallest entries of each row, ascending: d [B, nt,
+    rows, width] f32 -> [B, nt, rows, k] int32.
+
+    ``exact`` orders by the 64-bit key (o(d) << 32) | column, o the
+    order-preserving int32 image of d: the result is
+    ``lax.top_k(-d, k)[1]`` bit for bit (-0.0 before +0.0, ties to the
+    lowest column, no repeated column even where a row has fewer than k
+    finite entries). Otherwise the key is the int32 (o(d) & -1024) |
+    column (distances within ~2^-13 relative tie), for width <= 1024.
+    """
+    width = d.shape[-1]
+    if not 0 < k <= width:
+        raise ValueError(f"k={k} outside (0, width {width}]")
+    if not exact and width > PACKED_MAX_WIDTH:
+        raise ValueError(
+            f"packed selection takes width <= {PACKED_MAX_WIDTH}, got {width}")
+    if not on_cuda(d):
+        return select_min_k_plain(d, k, exact)
+    check(d, "d", torch.float32, 4)
+    out = torch.empty(d.shape[:-1] + (k,), dtype=torch.int32, device=d.device)
+    with torch.cuda.device(d.device):
+        SELECT_MIN_K(ptr(d), ptr(out), d.numel() // width, width, k,
+                     int(exact), stream(d.device))
+    return out
+
+
+def _min_k_key(d: torch.Tensor, exact: bool) -> torch.Tensor:
+    """K6's selection key: int64 (o << 32) + column, or int32 (o & -1024)
+    | column in packed mode."""
+    o = _order_bits(d)
+    if not exact:
+        return (o & -1024) | torch.arange(d.shape[-1], dtype=torch.int32,
+                                           device=d.device)
+    key = o.to(torch.int64)
+    del o
+    return key.mul_(1 << 32).add_(torch.arange(d.shape[-1], device=d.device))
+
+
+def select_min_k_plain(d: torch.Tensor, k: int,
+                       exact: bool = True) -> torch.Tensor:
+    """Plain PyTorch version of :func:`select_min_k`: ``torch.topk`` over
+    the same keys, which are distinct, so the order is unique."""
+    key = _min_k_key(d, exact)
+    return torch.topk(key, k, dim=-1, largest=False,
+                      sorted=True).indices.to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
 # pyramid
 # ---------------------------------------------------------------------------
 
@@ -422,6 +484,7 @@ def build_pyramid_windowed(
     kernel_sizes: Sequence[int] = (16, 16, 16, 16, 16),
     ratios: Sequence[int] = (4, 4, 4, 4, 2),
     *,
+    k_up: int = 1,
     generator: Optional[torch.Generator] = None,
     offsets: Optional[Sequence] = None,
     tile: int = TILE,
@@ -441,6 +504,8 @@ def build_pyramid_windowed(
     ``curve_rot`` ([3, 3]) rotates the coordinates fed to the Morton code
     only. ``knn_exact`` selects exact kNN selection; otherwise the packed
     key is used wherever the window is at most PACKED_MAX_WIDTH wide.
+    ``k_up`` is the number of columns of each scale's ``up_idx`` (the
+    nearest coarse points of each fine point).
 
     Returns (order, scales): ``order`` [B, N] int64 is the Morton
     permutation to apply to features (pos is already sorted).
@@ -471,7 +536,7 @@ def build_pyramid_windowed(
         choice = torch.clamp(choice + off.to(pos.device).long(), max=n - 1)
         sub_pos = pos[:, choice].contiguous()
         sub_idx = neighbor_idx[:, choice].contiguous()
-        up_idx = window_knn_auto(sub_pos, 1, pos, tile, pad, knn_exact)
+        up_idx = window_knn_auto(sub_pos, k_up, pos, tile, pad, knn_exact)
         scales.append(ScaleData(pos, neighbor_idx, sub_idx, up_idx))
         pos = sub_pos
     return order, tuple(scales)

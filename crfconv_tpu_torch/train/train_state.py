@@ -8,7 +8,10 @@ before the momentum trace, as the JAX package's optax chain does.
 
 The steps run eagerly and update the state in place. In the windowed
 regime a step takes a :class:`RawBatch` and builds its Morton-sorted
-pyramid on the batch's device.
+pyramid on the batch's device; otherwise it takes a :class:`PointBatch`
+whose pyramid is built (the exact regime's by
+``data/pipeline.py::build_pyramid_device``), and the caller names the
+gather regime that pyramid was built for.
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ from typing import Optional, Sequence
 import torch
 
 from crfconv_tpu_torch.data.batch import PointBatch, RawBatch
+from crfconv_tpu_torch.ops.morton import view_rotation
 from crfconv_tpu_torch.ops.neighbors import NeighborMode
 from crfconv_tpu_torch.ops.windowed import build_pyramid_windowed
 from crfconv_tpu_torch.train.losses import segmentation_loss
@@ -95,13 +99,18 @@ def build_windowed_batch(
     generator: Optional[torch.Generator] = None,
     offsets: Optional[Sequence] = None,
     mode: NeighborMode = TRAIN_MODE,
-) -> PointBatch:
+    curve_rot=None,
+    return_order: bool = False,
+):
     """RawBatch -> Morton-sorted PointBatch with a windowed pyramid, built
     on the device of ``raw.pos``. The subsampling offsets are drawn from
-    ``generator`` unless ``offsets`` gives them."""
+    ``generator`` unless ``offsets`` gives them; ``curve_rot`` turns the
+    Morton curve (``build_pyramid_windowed``). With ``return_order`` also
+    returns the Morton permutation."""
     order, scales = build_pyramid_windowed(
         raw.pos, generator=generator, offsets=offsets, tile=mode.tile,
-        pad=mode.pad, knn_exact=mode.knn_exact, device=raw.pos.device,
+        pad=mode.pad, knn_exact=mode.knn_exact, curve_rot=curve_rot,
+        device=raw.pos.device,
     )
 
     def take(a):
@@ -112,11 +121,12 @@ def build_windowed_batch(
             a.shape
         )
 
-    return PointBatch(
+    batch = PointBatch(
         x=take(raw.x), y=take(raw.y), scales=scales,
         point_idx=take(raw.point_idx), cloud_idx=raw.cloud_idx,
         category=raw.category,
     )
+    return (batch, order) if return_order else batch
 
 
 def _head(outputs, i: int) -> torch.Tensor:
@@ -124,8 +134,22 @@ def _head(outputs, i: int) -> torch.Tensor:
     return outputs[i] if isinstance(outputs, (tuple, list)) else outputs
 
 
+def _step_mode(mode: Optional[NeighborMode], windowed: bool) -> NeighborMode:
+    """The gather regime of a train or eval step. A step on a built pyramid
+    (``windowed=False``) must be told the regime that pyramid was built
+    for: the windowed gathers over an exact pyramid, whose indices are not
+    window-consistent, would give wrong results without an error."""
+    if mode is not None:
+        return mode
+    if not windowed:
+        raise ValueError(
+            "windowed=False takes a built PointBatch: pass its regime as "
+            "mode (NeighborMode('exact') for build_pyramid_device's)")
+    return TRAIN_MODE
+
+
 def make_train_step(
-    mode: NeighborMode = TRAIN_MODE,
+    mode: Optional[NeighborMode] = None,
     class_weights: Optional[torch.Tensor] = None,
     ignore_index: int = -1,
     windowed: bool = True,
@@ -134,11 +158,14 @@ def make_train_step(
     """The train step: pyramid (windowed) -> train-mode forward -> weighted
     CE -> backward -> SGD step -> confusion matrix.
 
-    With ``windowed`` the step takes a RawBatch and builds its pyramid,
-    else a PointBatch whose pyramid is built. ``label_offset`` is
-    subtracted from the labels before the loss and the confusion matrix
-    (the reference's ``y - 1`` for datasets whose label 0 is unlabeled).
+    With ``windowed`` the step takes a RawBatch and builds its pyramid in
+    ``mode`` (default ``TRAIN_MODE``), else a PointBatch whose pyramid is
+    built, and ``mode`` must name its regime (``NeighborMode("exact")``
+    for the exact regime). ``label_offset`` is subtracted from the labels
+    before the loss and the confusion matrix (the reference's ``y - 1``
+    for datasets whose label 0 is unlabeled).
     """
+    mode = _step_mode(mode, windowed)
 
     def train_step(
         state: TrainState, batch, generator: Optional[torch.Generator] = None,
@@ -170,45 +197,85 @@ def make_train_step(
 
 
 def make_eval_step(
-    mode: NeighborMode = TRAIN_MODE,
+    mode: Optional[NeighborMode] = None,
     class_weights: Optional[torch.Tensor] = None,
     ignore_index: int = -1,
     label_offset: int = 0,
+    windowed: bool = True,
+    eval_views: int = 1,
 ):
-    """The single-view eval step on a RawBatch (the 2-view ensemble is not
-    ported); ``label_offset`` as in :func:`make_train_step`."""
+    """The eval step; ``mode``, ``windowed`` and ``label_offset`` as in
+    :func:`make_train_step` (the port's default is the windowed regime; the
+    JAX package's ``make_eval_step`` defaults to ``windowed=False``).
+
+    ``eval_views > 1`` (windowed only) averages the softmax over that many
+    forwards, view v on a pyramid whose Morton curve is turned by
+    ``view_rotation(v)``, with its own subsampling offsets: the windows of
+    different orientations miss different cross-tile neighbours. Its
+    outputs are in the raw point order and its loss is the mean over the
+    views. A single view's outputs are in the batch's (Morton-sorted)
+    order, with the matching point ids and labels.
+    """
+    mode = _step_mode(mode, windowed)
+    if eval_views > 1 and not windowed:
+        raise ValueError("eval_views > 1 needs the windowed regime")
+
+    def outputs_of(state, batch):
+        labels = batch.y - label_offset
+        outputs = state.model(batch, mode)
+        primary = _head(outputs, -1)
+        loss = segmentation_loss(outputs, labels, class_weights, ignore_index)
+        return loss, primary
+
+    def metrics(loss, probs, labels, point_idx, raw_labels) -> dict:
+        preds = probs.argmax(dim=-1)
+        return {
+            "loss": loss,
+            "confusion": confusion_matrix_device(
+                labels, preds, probs.shape[-1], ignore_index
+            ),
+            "probs": probs,
+            "preds": preds,
+            "point_idx": point_idx,
+            "labels": raw_labels,
+        }
 
     @torch.no_grad()
     def eval_step(
         state: TrainState, batch, generator: Optional[torch.Generator] = None,
         offsets: Optional[Sequence] = None,
     ) -> dict:
-        """Eval-mode forward. The pyramid draws from ``generator``, or from
-        one seeded with the state's step when neither it nor ``offsets`` is
-        given. Outputs are in the batch's (Morton-sorted) order, with the
-        matching point ids and labels."""
-        model = state.model
-        model.eval()
+        """Eval-mode forward. A windowed pyramid draws from ``generator``,
+        or from one seeded with the state's step when neither it nor
+        ``offsets`` is given; with ``eval_views > 1`` the views draw in
+        turn, and ``offsets`` is a sequence of each view's offsets."""
+        state.model.eval()
+        if not windowed:
+            loss, primary = outputs_of(state, batch)
+            return metrics(loss, torch.softmax(primary, dim=-1),
+                           batch.y - label_offset, batch.point_idx, batch.y)
         if generator is None and offsets is None:
             generator = torch.Generator(
                 device=batch.pos.device
             ).manual_seed(state.step)
-        batch = build_windowed_batch(batch, generator, offsets, mode)
-        labels = batch.y - label_offset
-        outputs = model(batch, mode)
-        primary = _head(outputs, -1)
-        preds = primary.argmax(dim=-1)
-        return {
-            "loss": segmentation_loss(
-                outputs, labels, class_weights, ignore_index
-            ),
-            "confusion": confusion_matrix_device(
-                labels, preds, primary.shape[-1], ignore_index
-            ),
-            "probs": torch.softmax(primary, dim=-1),
-            "preds": preds,
-            "point_idx": batch.point_idx,
-            "labels": batch.y,
-        }
+        if eval_views == 1:
+            vb = build_windowed_batch(batch, generator, offsets, mode)
+            loss, primary = outputs_of(state, vb)
+            return metrics(loss, torch.softmax(primary, dim=-1),
+                           vb.y - label_offset, vb.point_idx, vb.y)
+        probs = loss = 0.0
+        for v in range(eval_views):
+            vb, order = build_windowed_batch(
+                batch, generator, None if offsets is None else offsets[v],
+                mode, curve_rot=view_rotation(v), return_order=True,
+            )
+            view_loss, primary = outputs_of(state, vb)
+            p = torch.softmax(primary, dim=-1)
+            # sorted row i is raw point order[b, i]
+            probs = probs + torch.empty_like(p).scatter_(
+                1, order[..., None].expand_as(p), p)
+            loss = loss + view_loss
+        return metrics(loss / eval_views, probs / eval_views,
+                       batch.y - label_offset, batch.point_idx, batch.y)
 
     return eval_step

@@ -1,4 +1,4 @@
-"""The thirteen CUDA kernels against their plain versions on the card, at
+"""The fourteen CUDA kernels against their plain versions on the card, at
 edge shapes the main path does not reach: ragged tiles, indices outside
 their window (clamped rows that read zero), every template width of K3/K4
 and K5 (with riders of 13 to 128 channels), tiny clouds whose windows are
@@ -6,8 +6,10 @@ mostly sentinel rows, and K > 16; the CRF cores' kernels (K9-K12, and the
 discrete K13/K14 at 1 to 50 classes) at B = 1, N = 1, 63, 65, duplicated
 indices, all-masked rows and subnormal weights; the backward of the four
 autograd Functions (K1/K8, K7/K8, the continuous core K9-K12, the discrete
-core K9/K12-K14) against autograd through the plain versions; and the
-kernels without a backward refusing to drop a gradient.
+core K9/K12-K14) against autograd through the plain versions; the
+kernels without a backward refusing to drop a gradient; and the k-min
+selection (K6) bit for bit at k = 1 to 40 on rows of 1 to 65536 columns
+with ties, signed zeros and +inf, under the exact kNN with TF32 on.
 
 Needs an NVIDIA GPU and nvcc; skipped otherwise. On the card run
 
@@ -24,7 +26,7 @@ import pytest
 import torch
 
 from crfconv_tpu_torch.ops import (
-    conv, crf_core, crf_sim, discrete_core, windowed,
+    conv, crf_core, crf_sim, discrete_core, neighbors, windowed,
 )
 
 pytestmark = pytest.mark.cuda
@@ -534,3 +536,104 @@ def test_discrete_kernels_raise_under_grad(dev):
         big = torch.zeros(1, 128, 129, device=dev)
         discrete_core.discrete_iterate(big, big, w, col,
                                        torch.zeros(129, 129, device=dev))
+
+
+# ---------------------------------------------------------------------------
+# K6: k-min selection
+# ---------------------------------------------------------------------------
+
+
+def _select_rows(rng, shape, width, dev):
+    """Distance rows [*shape, width] with duplicates (values on a coarse
+    grid), signed zeros, +inf, and one row with fewer finite entries than
+    most k."""
+    d = rng.integers(0, 64, shape + (width,)).astype(np.float32) / 8.0
+    d[rng.random(d.shape) < 0.1] = 0.0
+    d[rng.random(d.shape) < 0.1] = -0.0
+    d[rng.random(d.shape) < 0.1] = np.inf
+    d[rng.random(d.shape) < 0.3] *= rng.random()   # off-grid values too
+    flat = d.reshape(-1, width)
+    flat[0] = np.inf
+    flat[0, rng.permutation(width)[: max(width // 8, 1)]] = 1.0
+    return torch.as_tensor(d, device=dev)
+
+
+@pytest.mark.parametrize("k", [1, 3, 5, 16, 32, 40])
+@pytest.mark.parametrize("width", [31, 33, 1024, 8192, 65536])
+def test_select_min_k_bit_equal(dev, k, width):
+    if k > width:
+        pytest.skip("k > width raises (test_select_min_k_checks)")
+    rng = np.random.default_rng(40 + k)
+    rows = (1, 3, 5) if width == 65536 else (2, 3, 7)   # not a multiple of 8
+    d = _select_rows(rng, rows, width, dev)
+    for exact in ((True, False) if width <= 1024 else (True,)):
+        got = windowed.select_min_k(d, k, exact)
+        torch.cuda.synchronize()
+        ref = windowed.select_min_k_plain(d, k, exact)
+        assert got.shape == rows + (k,) and got.dtype == torch.int32
+        assert torch.equal(got, ref), (exact, (got != ref).sum().item())
+
+
+@pytest.mark.parametrize("k", [1, 3, 16, 32])
+def test_select_min_k_width_equals_k(dev, k):
+    rng = np.random.default_rng(50 + k)
+    d = _select_rows(rng, (2, 1, 9), k, dev)
+    for exact in (True, False):
+        got = windowed.select_min_k(d, k, exact)
+        assert torch.equal(got, windowed.select_min_k_plain(d, k, exact))
+        # every column once
+        assert torch.equal(got.sort(-1).values.long(),
+                           torch.arange(k, device=dev).expand_as(got))
+
+
+def test_select_min_k_unaligned_rows(dev):
+    """A contiguous block that does not start on 16 bytes takes the scalar
+    loads."""
+    rng = np.random.default_rng(60)
+    d = _select_rows(rng, (1, 2, 9), 1024, dev).reshape(-1)
+    buf = torch.empty(d.numel() + 1, device=dev)
+    buf[1:] = d
+    off = buf[1:].view(1, 2, 9, 1024)
+    assert off.data_ptr() % 16 != 0
+    for k in (16, 40):
+        assert torch.equal(windowed.select_min_k(off, k),
+                           windowed.select_min_k_plain(off, k))
+
+
+def test_select_min_k_checks(dev):
+    d = torch.zeros(1, 1, 4, 1025, device=dev)
+    with pytest.raises(ValueError):
+        windowed.select_min_k(d, 3, exact=False)
+    windowed.select_min_k(d[..., :1024].contiguous(), 3, exact=False)
+    with pytest.raises(ValueError):
+        windowed.select_min_k(d, 1026)
+    with pytest.raises(ValueError):
+        windowed.select_min_k(d[..., :8], 2)          # not contiguous
+    with pytest.raises(TypeError):
+        windowed.select_min_k(d.double(), 2)
+
+
+def test_knn_bruteforce_self_first_under_tf32(dev):
+    """With TF32 allowed for the process's matmuls, the exact kNN is the
+    one without it (its cross term runs in full float32), column 0 is the
+    query itself on all but the rows of near-duplicate points (distance
+    below float32's rounding of |q|^2 - 2 q.s + |s|^2), and the setting
+    is restored."""
+    rng = np.random.default_rng(61)
+    pos = torch.as_tensor(rng.random((2, 8192, 3), dtype=np.float32),
+                          device=dev)
+    ref = neighbors.knn_bruteforce(pos, pos, 16)
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        idx = neighbors.knn_bruteforce(pos, pos, 16)
+        assert torch.backends.cuda.matmul.allow_tf32
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    assert torch.equal(idx, ref)
+    self_share = float((idx[:, :, 0] == torch.arange(8192, device=dev))
+                       .float().mean())
+    assert self_share >= 0.999
+    d = torch.cdist(pos.double(), pos.double())
+    exact = torch.topk(d, 16, largest=False).indices
+    assert float((idx.long() == exact).float().mean()) >= 0.999
