@@ -10,7 +10,10 @@
    plain PyTorch version on the card, checks them against each other and
    times both (CUDA events, median of 20 runs after warm-up) beside the
    call's bound and, where one PyTorch call computes the same function,
-   that call's time.
+   that call's time; the kernel's and that call's device time (the sum of
+   their kernels in torch.profiler) and the wrapper's host time a call
+   (no synchronisation), split for K1 into the wrapper, Kernel.__call__
+   and the bare ctypes call.
 4. Main path: resets the launch counts, serves REQUESTS requests of
    B8 x 8192 points (S3DIS shape) through Predictor with the full-width
    PointConvResNet(13 classes, use_crf, steps=1) and seeded random
@@ -19,8 +22,11 @@
    the same pyramid and compares the logits.
 6. Train: takes one warm-up step of the full-width flagship (B8 x 8192,
    dropout 0.5, SGD lr 0.01) through make_train_step, recording every
-   kernel call of that step, and holds each kernel (K1, K2, K7, K8)
-   against its plain version on those calls, timed as in 3.
+   kernel call of that step, and holds each kernel (K1, K2, K7, K8, the
+   leaky ReLU's backward) against its plain version on those calls, timed
+   as in 3; each K8 call is also run twice (bit-identical) and held
+   bit-equal to the plain version on CPU copies of its inputs, as on
+   ScanNet's step in 10.
 7. Train main path: resets the launch counts, takes TRAIN_STEPS steps and
    checks the loss, that every gradient is finite and not all zero, that
    every parameter and running statistic moved, and the launch counts per
@@ -34,8 +40,8 @@
 10. ScanNet (ScanNetConfig: CRFSegNet(20 classes, steps=10), B16 x 8192,
     label_offset 1): one warm-up request and one warm-up train step,
     recording every kernel call of each (K1, K2, K9, K10 in the request;
-    K1, K2, K8 and K9-K12 in the step), each held against its plain
-    version and timed as in 3.
+    K1, K2, K8, K9-K12 and the leaky ReLU's backward in the step), each
+    held against its plain version and timed as in 3.
 11. ScanNet serving main path: SCANNET_REQUESTS requests through
     Predictor with seeded weights; outputs and exact launch counts; one
     forward with the kernels against one through the plain versions on the
@@ -69,12 +75,12 @@
     request, pyramid and forward times, a profile and peak memory.
 17. Flagship exact train step on a pyramid built once: TRAIN_STEPS steps of
     make_train_step(NeighborMode("exact"), windowed=False), no kernel
-    launched, a finite loss, every parameter moved; step time, phases,
-    train points/s; one exact eval step.
-18. Windowed 2-view eval (make_eval_step(eval_views=2), B8 x 8192): launch
-    counts per eval (K1 30, K2 20, K3 4, K4 2), probabilities finite and
-    normalised, and against the same eval with K1, K3 and K4 replaced by
-    their plain versions.
+    launched but the leaky ReLU's backward, a finite loss, every parameter
+    moved; step time, phases, train points/s; one exact eval step.
+18. Windowed 2-view eval (make_eval_step(eval_views=2), B8 x 8192): K1's
+    phase on one eval's recorded calls, launch counts per eval (K1 30, K2
+    20, K3 4, K4 2), probabilities finite and normalised, and against the
+    same eval with K1, K3 and K4 replaced by their plain versions.
 19. ScanNet-discrete exact serving (BaselineDiscreteCRFSegNet(20 classes,
     steps=10), B16 x 8192, ScanNet's kernel sizes, ratios and k_up = 3):
     a recorded warm-up request whose K6 calls are held bit-equal;
@@ -122,10 +128,13 @@ EXPECTED_PER_REQUEST = {
     "crf_operator": 0,          # steps = 1: no fused CRF core
     "crf_iterate": 0,
     "select_min_k": 0,        # the exact regime only
+    "leaky_relu_bwd": 0,      # the backward only
 }
 # launches of each kernel per B8 x 8192 train step (pyramid, forward,
 # backward): K8 is the backward of every K1 gather whose source needs a
-# gradient (all but the two gathers of pos) and of both K7 calls
+# gradient (all but the two gathers of pos) and of both K7 calls; the
+# leaky ReLU's backward runs once per activation (47, counted in the
+# model's code)
 EXPECTED_PER_STEP = {
     "windowed_gather": 18,
     "window_knn": 10,
@@ -138,7 +147,10 @@ EXPECTED_PER_STEP = {
     "crf_iterate_bwd": 0,
     "crf_neighbor_dot": 0,
     "select_min_k": 0,        # the exact regime only
+    "leaky_relu_bwd": 47,
 }
+# the flagship's activations per train step, in either regime
+FLAGSHIP_LEAKY_PER_STEP = EXPECTED_PER_STEP["leaky_relu_bwd"]
 SCANNET_REQUESTS = 3
 # launches per B16 x 8192 ScanNet request with CRFSegNet(steps=10): K1 is
 # the encoder's 10 gathers of [pos, h], 2 per k-NN interpolation (features
@@ -157,15 +169,18 @@ SCANNET_PER_REQUEST = {
     "crf_iterate_bwd": 0,
     "crf_neighbor_dot": 0,
     "select_min_k": 0,
+    "leaky_relu_bwd": 0,
 }
 # per ScanNet train step: the forward's, and in the backward K8 for every
 # gather whose source needs a gradient (not the 4 + 4 gathers of
-# positions), 10 reverse steps (K11) and one neighbour dot (K12) per core
+# positions), 10 reverse steps (K11) and one neighbour dot (K12) per core,
+# and one leaky-ReLU backward per activation
 SCANNET_PER_STEP = {
     **SCANNET_PER_REQUEST,
     "windowed_gather_bwd": 10 + 4 + 4,
     "crf_iterate_bwd": 4 * 10,
     "crf_neighbor_dot": 4,
+    "leaky_relu_bwd": 41,
 }
 DISCRETE_REQUESTS = 3
 # launches per B16 x 8192 ScanNet-discrete request with
@@ -189,15 +204,18 @@ DISCRETE_PER_REQUEST = {
     "discrete_iterate": 10,
     "discrete_iterate_bwd": 0,
     "select_min_k": 0,        # the exact regime only
+    "leaky_relu_bwd": 0,
 }
 # per ScanNet-discrete train step: the forward's, and in the backward K8 for
 # every gather whose source needs a gradient (not the 4 + 1 of positions),
-# 10 reverse steps (K14) and one neighbour dot (K12)
+# 10 reverse steps (K14), one neighbour dot (K12) and one leaky-ReLU
+# backward per activation
 DISCRETE_PER_STEP = {
     **DISCRETE_PER_REQUEST,
     "windowed_gather_bwd": 10 + 4 + 1,
     "discrete_iterate_bwd": 10,
     "crf_neighbor_dot": 1,
+    "leaky_relu_bwd": 37,
 }
 EXACT_REQUESTS = 3
 EXACT = None    # NeighborMode("exact"), set in main() after the import check
@@ -230,6 +248,7 @@ SEMANTIC3D_PER_REQUEST = {
     "crf_iterate": 0,
     "discrete_iterate": 0,
     "select_min_k": 0,        # the exact regime only
+    "leaky_relu_bwd": 0,
 }
 REPLACES = {
     "windowed_gather": "crfconv_tpu/ops/windowed_pallas.py:448",
@@ -246,6 +265,8 @@ REPLACES = {
     "discrete_iterate": "crfconv_tpu/ops/crf_pallas.py:690",
     "discrete_iterate_bwd": "crfconv_tpu/ops/crf_pallas.py:1383",
     "select_min_k": "crfconv_tpu/ops/windowed_pallas.py:285",
+    # flax's leaky-ReLU gradient at 0 in one launch; no TPU kernel
+    "leaky_relu_bwd": None,
 }
 
 
@@ -345,7 +366,7 @@ def call_sites():
 def train_call_sites():
     """As :func:`call_sites`, for the kernels of the train step: K1 and K7
     are reached inside their autograd Functions, K8 in their backward."""
-    from crfconv_tpu_torch.ops import windowed
+    from crfconv_tpu_torch.ops import activation, windowed
 
     return {
         "windowed_gather": (windowed, "_windowed_gather_launch",
@@ -361,7 +382,18 @@ def train_call_sites():
         "windowed_gather_bwd": (windowed, "windowed_gather_bwd",
                                 windowed.windowed_gather_bwd,
                                 windowed.windowed_gather_bwd_plain),
+        "leaky_relu_bwd": (activation, "leaky_relu_bwd",
+                           activation.leaky_relu_bwd,
+                           activation.leaky_relu_bwd_plain),
     }
+
+
+def leaky_plain_pair():
+    """The leaky ReLU's backward kernel replaced by its plain version, for
+    the steps through the plain versions."""
+    from crfconv_tpu_torch.ops import activation
+
+    return (activation, "leaky_relu_bwd", activation.leaky_relu_bwd_plain)
 
 
 def record_calls(sites, run, snapshot=()):
@@ -428,6 +460,8 @@ def bound_of(name, args, out):
         ops = args[0].numel()              # an add per element of g
     elif name == "crf_operator":
         ops = 0                            # a clamp per index
+    elif name == "leaky_relu_bwd":
+        ops = args[0].numel()              # a comparison per element
     elif name in ("crf_iterate", "crf_iterate_bwd"):
         x, s_ = args[0], args[2]
         b, n, h = x.shape
@@ -530,7 +564,7 @@ def compare(name, args, got, ref):
                           zip(OF_BOUND.get(name, frac), frac)]
         expect(frac[0] <= 1.0, "windowed_gather_bwd: outside the rounding "
                f"bound of the exact sum ({frac[0]:.7g} of it)")
-    if name in ("crf_operator", "crf_iterate"):
+    if name in ("crf_operator", "crf_iterate", "leaky_relu_bwd"):
         # one clamp; one sum order (k, then h ascending), no fused
         # multiply-add, as the plain version adds
         expect(torch.equal(got, ref), f"{name}: not bit-equal")
@@ -638,6 +672,37 @@ def compare(name, args, got, ref):
     return err
 
 
+# K8's determinism checks per path: [calls, reruns bit-identical, calls
+# bit-equal to the plain version on CPU copies (or None where not held)]
+BWD_CHECKS = {}
+# paths whose K8 calls are held bit-equal to the plain version on CPU
+# copies: index_add_ on the CPU adds in index order, as K8 does; the
+# discrete step's 5 GB calls keep the rounding bound alone
+BWD_CPU_PATHS = ("flagship train", "scannet train")
+
+
+def check_gather_bwd(kernel, args, kwargs, got, path) -> None:
+    """K8 sums each row's terms in ascending slot order: a second launch
+    is bit-identical, and on BWD_CPU_PATHS the result is bit-equal to the
+    plain version run on CPU copies of the inputs."""
+    from crfconv_tpu_torch.ops.windowed import windowed_gather_bwd_plain
+
+    rec = BWD_CHECKS.setdefault(path, [0, 0, None])
+    rec[0] += 1
+    again = kernel(*args, **kwargs)
+    same = torch.equal(got, again)
+    rec[1] += same
+    expect(same, f"windowed_gather_bwd ({path}): a rerun is not "
+           "bit-identical")
+    if path in BWD_CPU_PATHS:
+        cpu = [a.cpu() if isinstance(a, torch.Tensor) else a for a in args]
+        equal = torch.equal(got.cpu(), windowed_gather_bwd_plain(*cpu,
+                                                                 **kwargs))
+        rec[2] = (rec[2] or 0) + equal
+        expect(equal, f"windowed_gather_bwd ({path}): not bit-equal to the "
+               "plain version on the CPU")
+
+
 def library_call(name, args):
     """One PyTorch call computing the same function, or None. The main
     path's indices are window-consistent, so the clamp is the identity."""
@@ -662,7 +727,52 @@ def library_call(name, args):
     return None
 
 
-def kernel_phase(name, kernel, plain, calls):
+def device_ms(fn):
+    """Device time of one call of ``fn``: the sum of every CUDA kernel,
+    copy and fill it ran (torch.profiler), and those by name."""
+    rows = profile_device(fn)
+    return sum(r[1] for r in rows), [(k[:60], ms, n) for k, ms, n in rows]
+
+
+def host_us(fn, calls: int, runs: int = 5) -> float:
+    """Host time of one wrapper call: the wall time of ``fn`` (``calls``
+    calls, no synchronisation inside) over ``calls``, median of ``runs``."""
+    times = []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+        torch.cuda.synchronize()
+    return statistics.median(times) / calls * 1e6
+
+
+def host_split_us(kernel, calls) -> dict:
+    """Host time of one K1 call, split: the wrapper as the path calls it,
+    ``Kernel.__call__`` on the arguments the wrapper marshalled, and the
+    bare ctypes function on them. The outputs stay alive while their
+    pointers are relaunched."""
+    from crfconv_tpu_torch import cuda_build
+
+    k1 = cuda_build.WINDOWED_GATHER
+    fn = k1._fn
+    marshalled = []
+    k1._fn = lambda *a: marshalled.append(a) or fn(*a)
+    try:
+        keep = [kernel(*a, **k) for a, k in calls]
+    finally:
+        k1._fn = fn
+    n = len(calls)
+    split = {
+        "wrapper": host_us(lambda: [kernel(*a, **k) for a, k in calls], n),
+        "kernel_call": host_us(lambda: [k1(*a) for a in marshalled], n),
+        "ctypes": host_us(lambda: [fn(*a) for a in marshalled], n),
+    }
+    del keep
+    return split
+
+
+def kernel_phase(name, kernel, plain, calls, path):
     err, bound_ms, by_ops = 0.0, 0.0, {"bytes": 0.0, "operations": 0.0}
     ref_max = 0.0
     for args, kwargs in calls:
@@ -670,6 +780,8 @@ def kernel_phase(name, kernel, plain, calls):
         ref = plain(*args, **kwargs)
         torch.cuda.synchronize()
         err = max(err, compare(name, args, got, ref))
+        if name == "windowed_gather_bwd":
+            check_gather_bwd(kernel, args, kwargs, got, path)
         ref_max = max([ref_max] + [
             float(r.abs().max()) for r in (ref if isinstance(ref, tuple)
                                            else (ref,))
@@ -680,12 +792,21 @@ def kernel_phase(name, kernel, plain, calls):
         bound_ms += b_ms
         by_ops[b_by] += b_ms
     of_bound = OF_BOUND.pop(name, None)
-    ms = median_ms(lambda: [kernel(*a, **k) for a, k in calls])
+
+    def run_kernel():
+        for a, k in calls:
+            kernel(*a, **k)
+
+    ms = median_ms(run_kernel)
+    kernel_device_ms, device_kernels = device_ms(run_kernel)
+    kernel_host_us = host_us(run_kernel, len(calls))
     plain_ms = median_ms(lambda: [plain(*a, **k) for a, k in calls])
     libs = [library_call(name, a) for a, _ in calls]
-    library_ms = (
-        median_ms(lambda: [f() for f in libs]) if all(libs) else None
-    )
+    library_ms = library_device_ms = None
+    if all(libs):
+        library_ms = median_ms(lambda: [f() for f in libs])
+        library_device_ms = device_ms(lambda: [f() for f in libs])[0]
+    split = host_split_us(kernel, calls) if name == "windowed_gather" else None
     return {
         "name": name,
         "route": "cuda",
@@ -695,12 +816,17 @@ def kernel_phase(name, kernel, plain, calls):
         "max_abs_err": err,
         "max_abs_ref": ref_max,
         "ms": ms,
+        "device_ms": kernel_device_ms,
+        "device_kernels": device_kernels,
+        "host_us": kernel_host_us,
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
         "bound_by": max(by_ops, key=by_ops.get),
         "library_ms": library_ms,
+        "library_device_ms": library_device_ms,
         "calls": len(calls),
         "of_bound": of_bound,
+        "host_split_us": split,
     }
 
 
@@ -747,25 +873,39 @@ def request(rng, device):
     return pos, feats
 
 
-def profile_device(fn, path):
+def profile_device(fn, path=None):
     """Device time by kernel name over one call of ``fn`` (torch.profiler),
-    sorted by time; the chrome trace goes to ``path``."""
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
-        fn()
-        torch.cuda.synchronize()
+    sorted by time; the chrome trace goes to ``path`` if one is given. A
+    first call runs as the profiler's warm-up step and is not recorded,
+    and each call starts 50 ms into its step: without them the tracer
+    missed device work that started at once (the first of a phase's
+    calls, on the H100), and a pause after the calls."""
     from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     rows = []
-    for e in p.key_averages():   # device-side events only: the kernels,
-        # copies and fills, not the ranges that annotate them on the device
-        # (Optimizer.step#SGD.step)
-        if (e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
-                and not getattr(e, "is_user_annotation", False)):
-            rows.append((e.key, e.self_device_time_total / 1e3, e.count))
+
+    def ready(p):
+        for e in p.key_averages():   # device-side events only: the kernels,
+            # copies and fills, not the ranges that annotate them on the
+            # device (Optimizer.step#SGD.step)
+            if (e.device_type == DeviceType.CUDA
+                    and e.self_device_time_total > 0
+                    and not getattr(e, "is_user_annotation", False)):
+                rows.append((e.key, e.self_device_time_total / 1e3, e.count))
+        if path is not None:
+            p.export_chrome_trace(path)
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
+                 on_trace_ready=ready) as p:
+        for _ in range(2):
+            time.sleep(0.05)   # the device work lies well inside the window
+            fn()
+            torch.cuda.synchronize()
+            time.sleep(0.05)
+            p.step()
     rows.sort(key=lambda r: -r[1])
-    p.export_chrome_trace(path)
     return rows
 
 
@@ -884,7 +1024,7 @@ def run_phases(results: dict, path: str, sites, calls) -> None:
         if not calls[name]:
             continue
         with torch.inference_mode():
-            r = kernel_phase(name, kernel, plain, calls[name])
+            r = kernel_phase(name, kernel, plain, calls[name], path)
         r["path"] = path
         results.setdefault(name, []).append(r)
         print_phase(r)
@@ -892,13 +1032,44 @@ def run_phases(results: dict, path: str, sites, calls) -> None:
 
 def print_phase(r) -> None:
     print(f"# {r['name']} ({r['path']}): {r['calls']} calls, kernel "
-          f"{r['ms']:.4f} ms, "
+          f"{r['ms']:.4f} ms (device {r['device_ms']:.4f} ms, host "
+          f"{r['host_us']:.1f} us a call), "
           f"plain {r['plain_ms']:.4f} ms, bound {r['bound_ms'] * 1e3:.2f} us "
-          f"({r['bound_by']}), library {r['library_ms']}, max_abs_err "
+          f"({r['bound_by']}), library {r['library_ms']} (device "
+          f"{r['library_device_ms']}), max_abs_err "
           f"{r['max_abs_err']:.3g} (max |plain| {r['max_abs_ref']:.3g})"
           + ("" if r["of_bound"] is None else
              f", of rounding bound: kernel {r['of_bound'][0]:.7g}, plain "
-             f"{r['of_bound'][1]:.7g}"), flush=True)
+             f"{r['of_bound'][1]:.7g}")
+          + ("" if r["host_split_us"] is None else
+             f", host us a call {r['host_split_us']}"), flush=True)
+
+
+def leaky_backward_ab(step, rows) -> dict:
+    """The flagship step with the leaky-ReLU backward kernel (profiled
+    ``rows``) against the same step with torch's own leaky-ReLU backward
+    (which takes the slope as the gradient at 0): step ms (events, median
+    of 3) in turns kernel, torch, torch, kernel, and profiler launches."""
+    import torch.nn.functional as F
+    from crfconv_tpu_torch.models import common
+
+    def torch_leaky(x, slope):
+        return F.leaky_relu(x, negative_slope=slope)
+
+    ms = {"kernel": [], "torch": []}
+    for arm in ("kernel", "torch", "torch", "kernel"):
+        pairs = [(common, "leaky_relu", torch_leaky)] if arm == "torch" else []
+        with patched(pairs):
+            ms[arm].append(median_ms(step, runs=3, warmup=1))
+    with patched([(common, "leaky_relu", torch_leaky)]):
+        torch_rows = profile_device(step)
+    out = {"kernel": {"step_ms": ms["kernel"],
+                      "launches": sum(r[2] for r in rows)},
+           "torch": {"step_ms": ms["torch"],
+                     "launches": sum(r[2] for r in torch_rows)}}
+    print(f"# flagship step, leaky-ReLU backward kernel vs torch's: {out}",
+          flush=True)
+    return out
 
 
 def train_phases(dev, rng, out_dir: str, results: dict) -> dict:
@@ -980,6 +1151,8 @@ def train_phases(dev, rng, out_dir: str, results: dict) -> dict:
         "train profiler", lambda: train_step(state, raws[0], gen),
         os.path.join(out_dir, "chip_smoke_train_trace.json"), "step", step_ms,
     )
+    leaky_vs_torch = leaky_backward_ab(
+        lambda: train_step(state, raws[0], gen), profile_rows)
 
     # 8. one state, one pyramid, one dropout seed: kernels vs plain
     # versions, and a second kernel step for K8's run-to-run spread. The
@@ -998,6 +1171,7 @@ def train_phases(dev, rng, out_dir: str, results: dict) -> dict:
         (neighbors, "windowed_gather", windowed.windowed_gather_plain),
         (point_conv_big, "weighted_gather_reduce",
          lambda *a: windowed.windowed_weighted_reduce_plain(*a)[0]),
+        leaky_plain_pair(),
     ]
     cuda_build.reset_launch_counts()
     with patched(plain_pairs):
@@ -1005,7 +1179,7 @@ def train_phases(dev, rng, out_dir: str, results: dict) -> dict:
     p_counts = cuda_build.launch_counts()
     torch.cuda.synchronize()
     for name in ("windowed_gather", "windowed_weighted_reduce",
-                 "windowed_gather_bwd"):
+                 "windowed_gather_bwd", "leaky_relu_bwd"):
         expect(k_counts[name] == EXPECTED_PER_STEP[name],
                f"kernel step: {k_counts[name]} launches of {name}")
     expect(not any(p_counts.values()), f"plain step launched {p_counts}")
@@ -1076,6 +1250,7 @@ def train_phases(dev, rng, out_dir: str, results: dict) -> dict:
         )),
         "train_kernel_busy_ms": busy_ms,
         "train_profile": profile_rows[:40],
+        "leaky_relu_backward": leaky_vs_torch,
         "kernel_vs_plain_step": {
             "loss": [loss_k, loss_p], "grad_of_tolerance": d_grad,
             "grad_worst": worst, "grad_max": g_max,
@@ -1305,7 +1480,7 @@ def scannet_plain_pairs():
     from crfconv_tpu_torch.ops import crf, crf_core, neighbors, windowed
 
     return [(neighbors, "windowed_gather", windowed.windowed_gather_plain),
-            (crf, "crf_core", crf_core.crf_core_plain)]
+            (crf, "crf_core", crf_core.crf_core_plain), leaky_plain_pair()]
 
 
 def scannet_phases(dev, rng, out_dir: str, results: dict) -> dict:
@@ -1553,7 +1728,8 @@ def discrete_plain_pairs():
     from crfconv_tpu_torch.ops import crf, discrete_core, neighbors, windowed
 
     return [(neighbors, "windowed_gather", windowed.windowed_gather_plain),
-            (crf, "discrete_core", discrete_core.discrete_core_plain)]
+            (crf, "discrete_core", discrete_core.discrete_core_plain),
+            leaky_plain_pair()]
 
 
 def discrete_phases(dev, rng, out_dir: str, results: dict) -> dict:
@@ -2056,7 +2232,8 @@ def exact_phases(dev, rng, out_dir: str, results: dict) -> dict:
         expect(not bad, f"exact step {i}: no, non-finite or all-zero "
                f"gradient {bad[:4]}")
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    record_launches("exact train", cuda_build.launch_counts(), only({}),
+    record_launches("exact train", cuda_build.launch_counts(),
+                    only({"leaky_relu_bwd": FLAGSHIP_LEAKY_PER_STEP}),
                     TRAIN_STEPS, "steps")
     after = snapshot(state.model)
     still = [nm for nm in params if torch.equal(before[nm], after[nm])]
@@ -2108,8 +2285,9 @@ def exact_phases(dev, rng, out_dir: str, results: dict) -> dict:
     }
 
 
-def two_view_phase(dev, rng, out_dir: str) -> dict:
-    """Phase 18: the windowed 2-view eval of the flagship at B8 x 8192."""
+def two_view_phase(dev, rng, out_dir: str, results: dict) -> dict:
+    """Phase 18: the windowed 2-view eval of the flagship at B8 x 8192;
+    adds K1's phase on the eval's recorded calls to ``results``."""
     from crfconv_tpu_torch import TrainState, cuda_build, make_eval_step
     from crfconv_tpu_torch.models import crf_conv, point_conv_big
     from crfconv_tpu_torch.ops import conv, crf_sim, neighbors, windowed
@@ -2122,7 +2300,16 @@ def two_view_phase(dev, rng, out_dir: str) -> dict:
     def run():
         return eval_step(state, raw, step_generator(dev, 300))
 
-    run()                                              # warm-up
+    # warm-up, recording K1's calls of one eval
+    sites = {"windowed_gather": call_sites()["windowed_gather"]}
+    calls = record_calls(sites, run)
+    torch.cuda.synchronize()
+    n_k1 = len(calls["windowed_gather"])
+    expect(n_k1 == TWO_VIEW_PER_EVAL["windowed_gather"],
+           f"two-view eval: {n_k1} K1 calls, expected "
+           f"{TWO_VIEW_PER_EVAL['windowed_gather']}")
+    run_phases(results, "two-view eval", sites, calls)
+    del calls
     torch.cuda.synchronize()
     cuda_build.reset_launch_counts()
     t0 = time.perf_counter()
@@ -2346,7 +2533,7 @@ def main() -> int:
     semantic3d = semantic3d_phases(dev, rng, out_dir, results)
     torch.cuda.empty_cache()
     exact = exact_phases(dev, rng, out_dir, results)
-    two_view = two_view_phase(dev, rng, out_dir)
+    two_view = two_view_phase(dev, rng, out_dir, results)
     discrete_exact = discrete_exact_phase(dev, rng, out_dir, results)
 
     # launches: the sum over the eleven main paths (flagship serve and
@@ -2359,7 +2546,8 @@ def main() -> int:
     for name in REPLACES:
         phases = results[name]
         r = {k: v for k, v in phases[0].items()
-             if k not in ("path", "calls", "max_abs_ref", "of_bound")}
+             if k not in ("path", "calls", "max_abs_ref", "of_bound",
+                          "host_split_us", "device_kernels")}
         r["max_abs_err"] = max(p["max_abs_err"] for p in phases)
         r["launches"] = sum(LAUNCHES[name].values())
         r["launches_by_path"] = LAUNCHES[name]
@@ -2369,8 +2557,10 @@ def main() -> int:
         r["calls_per_run"] = phases[0]["calls"]
         r["phases"] = [
             {k: p[k] for k in ("path", "calls", "max_abs_err", "max_abs_ref",
-                               "ms", "plain_ms", "bound_ms", "bound_by",
-                               "library_ms", "of_bound")}
+                               "ms", "device_ms", "host_us", "plain_ms",
+                               "bound_ms", "bound_by", "library_ms",
+                               "library_device_ms", "of_bound",
+                               "host_split_us", "device_kernels")}
             for p in phases
         ]
         kernels.append(r)
@@ -2396,6 +2586,10 @@ def main() -> int:
         "exact": exact,
         "two_view": two_view,
         "discrete_exact": discrete_exact,
+        "gather_bwd_checks": {
+            path: {"calls": c, "reruns_bit_identical": r,
+                   "bit_equal_to_cpu_plain": e}
+            for path, (c, r, e) in BWD_CHECKS.items()},
         "failures": FAILURES,
         "script_s": time.perf_counter() - t_start,
     }

@@ -1,56 +1,252 @@
 // K8: transpose of the window-clamped gather (K1),
 //
-//   dx[b, clamp(idx[b,m,k]), :] += g[b,m,k,:]
+//   dx[b, r, :] = sum over the slots (m, k) with clamp(idx[b,m,k]) == r of
+//                 g[b, m, k, :], added in ascending slot order from +0.0
 //
-// g[B,M,K,F], idx[B,M,K] -> dx[B,N,F] f32; dx must be zeroed by the caller.
+// g[B,M,K,F] (rows of F floats ld apart), idx[B,M,K] -> dx[B,N,F] f32.
 // A slot is clamped into its output tile's window exactly as K1 clamps it,
 // and a clamped row outside [0, N) is dropped, so this is K1's exact
 // transpose for every geometry (same-scale, strided sub_idx, 1-NN up_idx).
+// The sum order is index_add_'s on the CPU (index order), so dx is
+// bit-equal to windowed_gather_bwd_plain run on the CPU, and identical from
+// run to run.
 //
 // Replaces crfconv_tpu/ops/windowed_pallas.py::windowed_gather_bwd_pallas
 // (_bwd_kernel). The TPU kernel multiplies each tile's transposed one-hot
 // matrix into per-tile window partials (MXU, hi/lo bf16 split) and
 // overlap-adds the windows in XLA; it covers the same-scale geometry only.
-// Here every slot adds its row of g into dx with f32 atomics, which reach
-// the 50 MB L2 where dx lives. The order of the adds into one row varies
-// from run to run, so dx is not bit-reproducible between runs (each sum is
-// within float32 rounding of the exact one).
 //
-// Bound: bytes. g is read once (B*M*K*F floats) and dx written once; one
-// add per element of g. One thread per element of g, f fastest, so a warp
-// reads g in full sectors and its atomics go to a few contiguous rows.
-#include "window.cuh"
+// Bound: bytes (g read once, dx written once). Two launches:
+//  1. tile_inverse: one block per (64-row output tile, batch) sorts the
+//     tile's slots by (clamped row relative to the window, slot) in shared
+//     memory: a count per window row, their prefix sum (each row's run),
+//     a place for each slot in its row's run, and a sort of each run by
+//     slot; it writes the sorted slots and the runs' offsets (a CSR of the
+//     tile);
+//  2. segment_sum: one thread per (dx row, 4 or 1 columns) walks the tiles
+//     whose windows hold its row in ascending order (found by a binary
+//     search over the tiles' window starts, held in shared memory), and
+//     each tile's run for the row, and writes its sum once (0 for a row no
+//     slot reaches). Lanes run across F, so a warp reads whole rows of g.
+#include <cuda_runtime.h>
 
-__global__ void windowed_gather_bwd_kernel(const float* __restrict__ g,
-                                           const int* __restrict__ idx,
-                                           const int* __restrict__ starts,
-                                           float* __restrict__ dx,
-                                           long long total, int n, int m,
-                                           int k, int f, int tile, int width,
-                                           int front) {
-  const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= total) return;
-  const long long slot = e / f;  // (b * m + row) * k + neighbour
-  const int c = (int)(e - slot * f);
-  const long long bm = slot / k;
-  const int b = (int)(bm / m);
-  const int row = (int)(bm - (long long)b * m);
-  const long long r = window_row(idx[slot], starts[row / tile], front, width);
-  if (!row_in(r, n)) return;
-  atomicAdd(dx + ((long long)b * n + r) * f + c, g[e]);
+#include <cstdint>
+#include <cstring>
+
+constexpr int kThreads = 256;
+
+// Exclusive prefix sum of a[0, n) in place, by the whole block. Each
+// thread sums a contiguous chunk, the chunk sums are scanned across the
+// block, and each chunk is rewritten from its offset.
+__device__ void block_exclusive_scan(int* a, int n, int* warp_sums) {
+  const int per = (n + kThreads - 1) / kThreads;
+  const int lo = min(n, threadIdx.x * per), hi = min(n, lo + per);
+  int sum = 0;
+  for (int i = lo; i < hi; ++i) sum += a[i];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int incl = sum;  // inclusive scan of the chunk sums within the warp
+  for (int d = 1; d < 32; d <<= 1) {
+    const int v = __shfl_up_sync(0xffffffffu, incl, d);
+    if (lane >= d) incl += v;
+  }
+  if (lane == 31) warp_sums[warp] = incl;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int run = 0;
+    for (int w = 0; w < kThreads / 32; ++w) {
+      const int v = warp_sums[w];
+      warp_sums[w] = run;
+      run += v;
+    }
+  }
+  __syncthreads();
+  int off = warp_sums[warp] + incl - sum;
+  for (int i = lo; i < hi; ++i) {
+    const int v = a[i];
+    a[i] = off;
+    off += v;
+  }
+  __syncthreads();
 }
 
-extern "C" int windowed_gather_bwd_f32(const void* g, const void* idx,
-                                       const void* starts, void* dx, int b,
-                                       int n, int m, int k, int f, int tile,
-                                       int width, int front, void* stream) {
-  const long long total = (long long)b * m * k * f;
-  if (total == 0) return -1;  // nothing to launch
-  const int threads = 256;
-  const long long blocks = (total + threads - 1) / threads;
-  windowed_gather_bwd_kernel<<<(unsigned)blocks, threads, 0,
-                               (cudaStream_t)stream>>>(
-      (const float*)g, (const int*)idx, (const int*)starts, (float*)dx, total,
-      n, m, k, f, tile, width, front);
+__global__ void __launch_bounds__(kThreads)
+    tile_inverse_kernel(const int* __restrict__ idx,
+                        const int* __restrict__ starts, int* __restrict__ order,
+                        int* __restrict__ runs, int m, int k, int tile,
+                        int width, int front) {
+  // a counting sort of the tile's slots by window row: count[width + 1]
+  // (the runs' offsets after the scan), then the slots placed by row
+  extern __shared__ int smem[];
+  __shared__ int warp_sums[kThreads / 32];
+  int* count = smem;
+  int* placed = smem + width + 1;
+  const int t = blockIdx.x;
+  const int b = blockIdx.y;
+  const int nt = gridDim.x;
+  const int m0 = t * tile;
+  const int slots = min(tile, m - m0) * k;
+  const int start = starts[t];
+  const int* ib = idx + ((long long)b * m + m0) * k;
+  for (int i = threadIdx.x; i <= width; i += kThreads) count[i] = 0;
+  __syncthreads();
+  for (int s = threadIdx.x; s < slots; s += kThreads)
+    atomicAdd(count + min(max(ib[s] + front - start, 0), width - 1), 1);
+  __syncthreads();
+  block_exclusive_scan(count, width + 1, warp_sums);
+  int* rb = runs + ((long long)b * nt + t) * (width + 1);
+  for (int i = threadIdx.x; i <= width; i += kThreads) rb[i] = count[i];
+  __syncthreads();
+  // each slot takes a place in its row's run (in no fixed order) ...
+  for (int s = threadIdx.x; s < slots; s += kThreads) {
+    const int rel = min(max(ib[s] + front - start, 0), width - 1);
+    placed[atomicAdd(count + rel, 1)] = s;
+  }
+  __syncthreads();
+  // ... and each run is sorted by slot (count[rel] is now its end): runs
+  // hold a few slots each, the window's edge rows all clamped slots
+  for (int rel = threadIdx.x; rel < width; rel += kThreads) {
+    const int lo = rel == 0 ? 0 : count[rel - 1], hi = count[rel];
+    for (int i = lo + 1; i < hi; ++i) {
+      const int v = placed[i];
+      int j = i - 1;
+      while (j >= lo && placed[j] > v) {
+        placed[j + 1] = placed[j];
+        --j;
+      }
+      placed[j + 1] = v;
+    }
+  }
+  __syncthreads();
+  int* ob = order + ((long long)b * m + m0) * k;  // slots within batch b
+  for (int i = threadIdx.x; i < slots; i += kThreads)
+    ob[i] = m0 * k + placed[i];
+}
+
+template <bool kVec>
+__global__ void __launch_bounds__(kThreads)
+    segment_sum_kernel(const float* __restrict__ g,
+                       const int* __restrict__ starts,
+                       const int* __restrict__ order,
+                       const int* __restrict__ runs, float* __restrict__ dx,
+                       int n, int m, int k, int f, long long ld, int tile,
+                       int width, int front, int nt, int rows_per_block) {
+  __shared__ int t_lo[kThreads], t_hi[kThreads];
+  extern __shared__ int tile_start[];  // starts[0, nt)
+  const int b = blockIdx.y;
+  const int r0 = blockIdx.x * rows_per_block;
+  const int rows = min(rows_per_block, n - r0);
+  for (int t = threadIdx.x; t < nt; t += kThreads) tile_start[t] = starts[t];
+  __syncthreads();
+  // the tiles whose windows [starts[t] - front, + width) hold each row:
+  // starts ascend, so they are the t with r + front - width < starts[t]
+  // <= r + front
+  for (int i = threadIdx.x; i < rows; i += kThreads) {
+    const int r = r0 + i;
+    int lo = 0, hi = nt;  // first t with starts[t] > r + front - width
+    while (lo < hi) {
+      const int mid = (lo + hi) >> 1;
+      if (tile_start[mid] > r + front - width) hi = mid; else lo = mid + 1;
+    }
+    t_lo[i] = lo;
+    hi = nt;  // first t with starts[t] > r + front
+    while (lo < hi) {
+      const int mid = (lo + hi) >> 1;
+      if (tile_start[mid] > r + front) hi = mid; else lo = mid + 1;
+    }
+    t_hi[i] = lo;
+  }
+  __syncthreads();
+  const int chunks = kVec ? f >> 2 : f;
+  const float* gb = g + (long long)b * m * k * ld;
+  for (int w = threadIdx.x; w < rows * chunks; w += kThreads) {
+    const int i = w / chunks;
+    const int col = (w - i * chunks) * (kVec ? 4 : 1);
+    const int r = r0 + i;
+    float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    for (int t = t_lo[i]; t < t_hi[i]; ++t) {
+      const int* rb = runs + ((long long)b * nt + t) * (width + 1) +
+                      (r + front - tile_start[t]);
+      const int* ob = order + (long long)b * m * k + (long long)t * tile * k;
+      const int end = rb[1];
+#pragma unroll 4
+      for (int j = rb[0]; j < end; ++j) {
+        const float* row = gb + (long long)ob[j] * ld + col;
+        if (kVec) {
+          const float4 v = __ldg(reinterpret_cast<const float4*>(row));
+          acc.x = __fadd_rn(acc.x, v.x);
+          acc.y = __fadd_rn(acc.y, v.y);
+          acc.z = __fadd_rn(acc.z, v.z);
+          acc.w = __fadd_rn(acc.w, v.w);
+        } else {
+          acc.x = __fadd_rn(acc.x, __ldg(row));
+        }
+      }
+    }
+    float* out = dx + ((long long)b * n + r) * f + col;
+    if (kVec) {
+      *reinterpret_cast<float4*>(out) = acc;
+    } else {
+      *out = acc.x;
+    }
+  }
+}
+
+// The arguments arrive packed as 16 int64s (g, idx, starts, order, runs,
+// dx, b, n, m, k, f, ld, tile, width, front, stream): one buffer costs the
+// host less than ctypes' conversion of each argument.
+extern "C" int windowed_gather_bwd_f32(const char* packed) {
+  long long a[16];
+  memcpy(a, packed, sizeof a);
+  const void* g = (const void*)a[0];
+  const void* idx = (const void*)a[1];
+  const void* starts = (const void*)a[2];
+  void* order = (void*)a[3];
+  void* runs = (void*)a[4];
+  void* dx = (void*)a[5];
+  const int b = (int)a[6], n = (int)a[7], m = (int)a[8], k = (int)a[9],
+            f = (int)a[10];
+  const long long ld = a[11];
+  const int tile = (int)a[12], width = (int)a[13], front = (int)a[14];
+  void* stream = (void*)a[15];
+  if ((long long)b * n * f == 0) return -1;  // nothing to launch
+  cudaStream_t st = (cudaStream_t)stream;
+  const int nt = k == 0 ? 0 : (m + tile - 1) / tile;
+  if (nt > 0) {
+    const size_t smem = sizeof(int) * (width + 1 + (size_t)tile * k);
+    if (smem > 48 * 1024) {
+      const cudaError_t e = cudaFuncSetAttribute(
+          tile_inverse_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          (int)smem);
+      if (e != cudaSuccess) return (int)e;
+    }
+    tile_inverse_kernel<<<dim3(nt, b), kThreads, smem, st>>>(
+        (const int*)idx, (const int*)starts, (int*)order, (int*)runs, m, k,
+        tile, width, front);
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+  }
+  const bool vec = f % 4 == 0 && ld % 4 == 0 &&
+                   reinterpret_cast<uintptr_t>(g) % 16 == 0;
+  const int chunks = vec ? f / 4 : f;
+  const int rows_per_block = chunks >= kThreads ? 1 : kThreads / chunks;
+  dim3 grid((n + rows_per_block - 1) / rows_per_block, b);
+  const size_t smem = sizeof(int) * nt;  // the tiles' window starts
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        vec ? segment_sum_kernel<true> : segment_sum_kernel<false>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  if (vec) {
+    segment_sum_kernel<true><<<grid, kThreads, smem, st>>>(
+        (const float*)g, (const int*)starts, (const int*)order,
+        (const int*)runs, (float*)dx, n, m, k, f, ld, tile, width, front, nt,
+        rows_per_block);
+  } else {
+    segment_sum_kernel<false><<<grid, kThreads, smem, st>>>(
+        (const float*)g, (const int*)starts, (const int*)order,
+        (const int*)runs, (float*)dx, n, m, k, f, ld, tile, width, front, nt,
+        rows_per_block);
+  }
   return (int)cudaGetLastError();
 }

@@ -100,9 +100,13 @@ class Kernel:
         self.launches += 1
 
 
+# K1 and K8 take their arguments packed as int64s in one bytes object
+# (``struct.pack``): per call that costs the host a few microseconds less
+# than ctypes' conversion of a dozen arguments, which their wrappers pay
+# on every gather of the forward and backward.
 WINDOWED_GATHER = Kernel(
     "windowed_gather", "windowed_gather.cu", "windowed_gather_f32",
-    [_P] * 4 + [_I] * 8 + [_P],
+    [ctypes.c_char_p],
 )
 WINDOW_KNN = Kernel(
     "window_knn", "window_knn.cu", "window_knn_f32",
@@ -123,7 +127,7 @@ WINDOWED_WEIGHTED_REDUCE = Kernel(
 )
 WINDOWED_GATHER_BWD = Kernel(
     "windowed_gather_bwd", "windowed_gather_bwd.cu", "windowed_gather_bwd_f32",
-    [_P] * 4 + [_I] * 8 + [_P],
+    [ctypes.c_char_p],
 )
 CRF_OPERATOR = Kernel(
     "crf_operator", "crf_operator.cu", "crf_operator_i32",
@@ -157,12 +161,17 @@ SELECT_MIN_K = Kernel(
     "select_min_k", "select_min_k.cu", "select_min_k_f32",
     [_P, _P, ctypes.c_longlong, _I, _I, _I, _P],
 )
+LEAKY_RELU_BWD = Kernel(
+    "leaky_relu_bwd", "leaky_relu_bwd.cu", "leaky_relu_bwd_f32",
+    [_P] * 3 + [ctypes.c_longlong, _I, ctypes.c_longlong, ctypes.c_float,
+                _P],
+)
 KERNELS = (
     WINDOWED_GATHER, WINDOW_KNN, POINT_CONV_FUSED_INFER,
     CRF_SIMILARITY_MESSAGE, WINDOWED_WEIGHTED_REDUCE, WINDOWED_GATHER_BWD,
     CRF_OPERATOR, CRF_ITERATE, CRF_ITERATE_BWD, CRF_NEIGHBOR_DOT,
     POINT_CONV_FUSED_STRIDED, DISCRETE_ITERATE, DISCRETE_ITERATE_BWD,
-    SELECT_MIN_K,
+    SELECT_MIN_K, LEAKY_RELU_BWD,
 )
 
 

@@ -15,17 +15,20 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from crfconv_tpu_torch.ops.activation import leaky_relu
+
 BN_MOMENTUM = 0.9   # running stats: ra = 0.9 * ra + 0.1 * batch, as flax
 
 
 def leaky_relu01(x: torch.Tensor) -> torch.Tensor:
-    """LeakyReLU(0.1), the big-family activation."""
-    return F.leaky_relu(x, negative_slope=0.1)
+    """LeakyReLU(0.1), the big-family activation (flax's gradient at 0)."""
+    return leaky_relu(x, 0.1)
 
 
 def leaky_relu001(x: torch.Tensor) -> torch.Tensor:
-    """LeakyReLU(0.01), torch's default slope, on the residual adds."""
-    return F.leaky_relu(x, negative_slope=0.01)
+    """LeakyReLU(0.01), torch's default slope, on the residual adds (flax's
+    gradient at 0)."""
+    return leaky_relu(x, 0.01)
 
 
 def dropout(x: torch.Tensor, rate: float,

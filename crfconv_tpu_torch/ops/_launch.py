@@ -14,6 +14,10 @@ import torch
 
 def on_cuda(*tensors: torch.Tensor) -> bool:
     """True if the tensors lie on one CUDA device, False if on the CPU."""
+    if tensors[0].is_cuda:     # the launch path: compare device indices
+        index = tensors[0].get_device()
+        if all(t.is_cuda and t.get_device() == index for t in tensors[1:]):
+            return True
     dev = tensors[0].device
     for t in tensors[1:]:
         if t.device != dev:
@@ -50,3 +54,19 @@ def ptr(t: torch.Tensor) -> ctypes.c_void_p:
 
 def stream(device: torch.device) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def raw_stream(device: torch.device) -> int:
+    """The current stream of ``device`` as the int a ctypes ``c_void_p``
+    argument takes, without building a ``torch.cuda.Stream``."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
+
+
+def launch_on(device: torch.device, kernel, *args) -> None:
+    """Call ``kernel(*args)`` with ``device`` current, entering it only
+    when another device is current."""
+    if device.index == torch._C._cuda_getDevice():
+        kernel(*args)
+    else:
+        with torch.cuda.device(device):
+            kernel(*args)

@@ -12,6 +12,7 @@ sorted source (``window_starts``), which the builder and the gather share.
 from __future__ import annotations
 
 import functools
+import struct
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
@@ -24,9 +25,13 @@ from crfconv_tpu_torch.cuda_build import (
 )
 from crfconv_tpu_torch.data.batch import ScaleData
 from crfconv_tpu_torch.ops._launch import (
-    check, check_no_grad, on_cuda, ptr, stream,
+    check, check_no_grad, launch_on, on_cuda, ptr, raw_stream, stream,
 )
 from crfconv_tpu_torch.ops.morton import morton_order
+
+# K1's and K8's arguments, packed as int64s (cuda_build.WINDOWED_GATHER)
+_pack13 = struct.Struct("13q").pack
+_pack16 = struct.Struct("16q").pack
 
 TILE = 64      # output rows per window tile
 PAD = 128      # extra candidate rows on each side of a tile
@@ -105,9 +110,12 @@ def windowed_gather(
     outside [0, N) reads zero. For window-consistent indices (as
     ``window_knn`` makes them) this is the exact gather x[b, idx].
     Differentiable in x: the backward is :func:`windowed_gather_bwd`
-    (kernel K8), the exact transpose, for every geometry.
+    (kernel K8), the exact transpose, for every geometry. Where no
+    gradient is needed the gather runs without the autograd Function.
     """
-    return _WindowedGather.apply(x, idx, tile, pad)
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _WindowedGather.apply(x, idx, tile, pad)
+    return _windowed_gather_launch(x, idx, tile, pad)
 
 
 class _WindowedGather(torch.autograd.Function):
@@ -124,8 +132,7 @@ class _WindowedGather(torch.autograd.Function):
     def backward(ctx, g):
         (idx,) = ctx.saved_tensors
         n, tile, pad = ctx.geometry
-        # slices of the output (g[..., :3]) reach here non-contiguous
-        dx = windowed_gather_bwd(g.contiguous(), idx, n, tile, pad)
+        dx = windowed_gather_bwd(g, idx, n, tile, pad)
         return dx, None, None, None
 
 
@@ -140,13 +147,12 @@ def _windowed_gather_launch(x, idx, tile, pad):
     if idx.shape[0] != B:
         raise ValueError(f"batch {idx.shape[0]} != {B}")
     M, K = idx.shape[1], idx.shape[2]
-    starts, width, front = _geometry(M, N, tile, pad, x.device)
-    out = torch.empty((B, M, K, Fd), dtype=x.dtype, device=x.device)
-    with torch.cuda.device(x.device):
-        WINDOWED_GATHER(
-            ptr(x), ptr(idx), ptr(starts), ptr(out), B, N, M, K, Fd, tile,
-            width, front, stream(x.device),
-        )
+    dev = x.device
+    starts, width, front = _geometry(M, N, tile, pad, dev)
+    out = torch.empty((B, M, K, Fd), dtype=x.dtype, device=dev)
+    launch_on(dev, WINDOWED_GATHER, _pack13(
+        x.data_ptr(), idx.data_ptr(), starts.data_ptr(), out.data_ptr(), B,
+        N, M, K, Fd, tile, width, front, raw_stream(dev)))
     return out
 
 
@@ -188,24 +194,40 @@ def windowed_gather_bwd(
     [B, M, K] int32 -> dx [B, n_src, F], dx[b, row(idx)] += g[b, m, k].
 
     ``row`` is the window clamp of the forward; slots whose clamped row
-    lies outside [0, n_src) are dropped. The kernel adds with atomics, so
-    its sums are not bit-reproducible from run to run.
+    lies outside [0, n_src) are dropped. Each row's terms are added in
+    ascending slot order from +0.0, the order of the plain version's
+    ``index_add_`` on the CPU: the kernel is bit-equal to it and
+    deterministic. g may be a slice of a wider tensor's last dimension.
     """
     if not on_cuda(g, idx):
         return windowed_gather_bwd_plain(g, idx, n_src, tile, pad)
     check_no_grad("windowed_gather_bwd", g)
-    check(g, "g", torch.float32, 4)
     check(idx, "idx", torch.int32, 3)
+    if g.dtype != torch.float32 or g.dim() != 4:
+        raise TypeError(f"g: expected float32 [B, M, K, F], got {g.dtype} "
+                        f"{tuple(g.shape)}")
     B, M, K, Fd = g.shape
     if idx.shape != (B, M, K):
         raise ValueError(f"g {tuple(g.shape)}, idx {tuple(idx.shape)}")
-    starts, width, front = _geometry(M, n_src, tile, pad, g.device)
-    dx = torch.zeros((B, n_src, Fd), dtype=g.dtype, device=g.device)
-    with torch.cuda.device(g.device):
-        WINDOWED_GATHER_BWD(
-            ptr(g), ptr(idx), ptr(starts), ptr(dx), B, n_src, M, K, Fd, tile,
-            width, front, stream(g.device),
-        )
+    rows, ld = g, Fd
+    if not g.is_contiguous():
+        rows = g.flatten(0, 2)   # a view where g's rows are evenly spaced
+        if Fd > 1 and rows.stride(1) != 1:
+            rows = rows.contiguous()
+        ld = rows.stride(0) if rows.shape[0] > 1 else Fd
+    dev = g.device
+    starts, width, front = _geometry(M, n_src, tile, pad, dev)
+    # scratch: the tiles' slots sorted by window row (B * M * K), then each
+    # tile's run offset per window row (B * tiles * (width + 1))
+    n_order = B * M * K
+    scratch = torch.empty(n_order + B * starts.shape[0] * (width + 1),
+                          dtype=torch.int32, device=dev)
+    dx = torch.empty((B, n_src, Fd), dtype=g.dtype, device=dev)
+    order = scratch.data_ptr()
+    launch_on(dev, WINDOWED_GATHER_BWD, _pack16(
+        rows.data_ptr(), idx.data_ptr(), starts.data_ptr(), order,
+        order + 4 * n_order, dx.data_ptr(), B, n_src, M, K, Fd, ld, tile,
+        width, front, raw_stream(dev)))
     return dx
 
 

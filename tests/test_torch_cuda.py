@@ -1,4 +1,4 @@
-"""The fourteen CUDA kernels against their plain versions on the card, at
+"""The fifteen CUDA kernels against their plain versions on the card, at
 edge shapes the main path does not reach: ragged tiles, indices outside
 their window (clamped rows that read zero), every template width of K3/K4
 and K5 (with riders of 13 to 128 channels), tiny clouds whose windows are
@@ -9,7 +9,12 @@ autograd Functions (K1/K8, K7/K8, the continuous core K9-K12, the discrete
 core K9/K12-K14) against autograd through the plain versions; the
 kernels without a backward refusing to drop a gradient; and the k-min
 selection (K6) bit for bit at k = 1 to 40 on rows of 1 to 65536 columns
-with ties, signed zeros and +inf, under the exact kNN with TF32 on.
+with ties, signed zeros and +inf, under the exact kNN with TF32 on. K1 is
+bit-equal at every store and load path (F = 1 to 643, K = 1 to 31, a
+source one float off 16-byte alignment); K8 is bit-equal to its plain
+version on CPU copies (index_add_ on the CPU adds in index order, as K8
+does) and to itself on a rerun, with g read in place as a slice; the
+leaky ReLU's backward kernel gives flax's gradient at 0.
 
 Needs an NVIDIA GPU and nvcc; skipped otherwise. On the card run
 
@@ -62,6 +67,23 @@ def test_windowed_gather_bit_equal(dev, m, n, f, k, spread):
     rng = np.random.default_rng(0)
     x = torch.randn(2, n, f, device=dev)
     idx = _idx(rng, 2, m, n, k, spread, dev)
+    got = windowed.windowed_gather(x, idx)
+    assert torch.equal(got, windowed.windowed_gather_plain(x, idx))
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("k", [1, 16, 31])
+@pytest.mark.parametrize("f", [1, 3, 4, 35, 320, 643])
+def test_windowed_gather_widths(dev, f, k, offset):
+    """Every store path of K1: float4 loads (F % 4 == 0 on a 16-byte
+    aligned x), scalar loads (other F, or x one float off alignment), the
+    ragged head and tail of each tile's run (M = 1000 is no multiple of
+    64, and B * M * K * F need not be one of 4), and clamped slots."""
+    rng = np.random.default_rng(10)
+    b, m, n = 2, 1000, 1000
+    buf = torch.randn(b * n * f + offset, device=dev)
+    x = buf[offset:].view(b, n, f)
+    idx = _idx(rng, b, m, n, k, 400, dev)
     got = windowed.windowed_gather(x, idx)
     assert torch.equal(got, windowed.windowed_gather_plain(x, idx))
 
@@ -143,11 +165,40 @@ def test_gather_bwd_matches_plain(dev, m, n, f, k, spread):
     idx = _idx(rng, 2, m, n, k, spread, dev)
     got = windowed.windowed_gather_bwd(g, idx, n)
     ref = windowed.windowed_gather_bwd_plain(g, idx, n)
-    # f32 atomics add each row's terms in another order than index_add_:
-    # the rounding grows with the magnitudes summed into the row, and the
+    # index_add_ on the card adds with atomics in another order: the
+    # rounding grows with the magnitudes summed into the row, and the
     # window's edge rows collect every clamped slot (hundreds of terms)
     mass = windowed.windowed_gather_bwd_plain(g.abs(), idx, n)
     assert bool(((got - ref).abs() <= 1e-5 * ref.abs() + 1e-6 * mass).all())
+    # K8 adds in index order, as index_add_ on the CPU
+    assert torch.equal(got.cpu(),
+                       windowed.windowed_gather_bwd_plain(g.cpu(), idx.cpu(), n))
+
+
+@pytest.mark.parametrize("sliced", [False, True])
+@pytest.mark.parametrize(
+    "m,n,f,k",
+    [(1000, 1000, 3, 16), (1000, 1000, 4, 31), (250, 1000, 35, 16),
+     (300, 300, 320, 31), (3000, 700, 19, 1), (1000, 1000, 643, 16)],
+)
+def test_gather_bwd_bit_equal_to_cpu(dev, m, n, f, k, sliced):
+    """K8 against the plain version on CPU copies, bit for bit, and against
+    itself on a rerun: same-scale, strided and upsample geometries, every
+    load path (float4 where F % 4 == 0), a g that is a slice of a wider
+    tensor's last dimension (rows ld > F apart, read in place), and
+    indices spread past the windows, so that the edge rows of a window
+    collect hundreds of clamped slots."""
+    rng = np.random.default_rng(11)
+    wide = torch.randn(2, m, k, f + (4 if sliced else 0), device=dev)
+    g = wide[..., :f]
+    idx = _idx(rng, 2, m, n, k, 4 * n, dev)
+    got = windowed.windowed_gather_bwd(g, idx, n)
+    assert torch.equal(got, windowed.windowed_gather_bwd(g, idx, n))
+    ref = windowed.windowed_gather_bwd_plain(g.cpu(), idx.cpu(), n)
+    assert torch.equal(got.cpu(), ref)
+    terms = windowed.windowed_gather_bwd_plain(
+        torch.ones(2, m, k, 1), idx.cpu(), n)
+    assert float(terms.max()) >= 200
 
 
 @pytest.mark.parametrize("m,n,f,k", [(1000, 1000, 19, 15), (250, 1000, 3, 16),
@@ -169,6 +220,10 @@ def test_gather_backward_matches_plain_autograd(dev, m, n, f, k):
         w.transpose(1, 2).abs().contiguous(), idx, n
     )
     assert bool(((got - x.grad).abs() <= 1e-5 * x.grad.abs() + 1e-6 * mass).all())
+    # and bit-equal to the transpose taken on the CPU
+    ref = windowed.windowed_gather_bwd_plain(w.transpose(1, 2).cpu(),
+                                             idx.cpu(), n)
+    assert torch.equal(got.cpu(), ref)
 
 
 def test_weighted_gather_reduce_backward_matches_plain(dev):
@@ -188,6 +243,46 @@ def test_weighted_gather_reduce_backward_matches_plain(dev):
     gu = (out.cos()[:, :, None, :] * u).detach()
     mass = windowed.windowed_gather_bwd_plain(gu.abs(), idx, n)
     assert bool(((got[0] - x.grad).abs() <= 1e-5 * x.grad.abs() + 1e-6 * mass).all())
+
+
+def test_windowed_gather_no_grad_skips_autograd(dev):
+    """Without a gradient to build, K1 launches without its autograd
+    Function; with one, the output has K1's backward."""
+    rng = np.random.default_rng(12)
+    x = torch.randn(1, 300, 5, device=dev, requires_grad=True)
+    idx = _idx(rng, 1, 300, 300, 7, 40, dev)
+    with torch.no_grad():
+        a = windowed.windowed_gather(x, idx)
+    b = windowed.windowed_gather(x, idx)
+    assert a.grad_fn is None and b.grad_fn is not None
+    assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("numel,offset,sliced", [
+    (4096, 0, False), (1001, 0, False), (4096, 1, False), (4199, 0, True)])
+def test_leaky_relu_bwd_matches_plain(dev, numel, offset, sliced):
+    """The leaky ReLU's backward kernel (float4 and scalar paths, and a
+    gradient that is a slice of a wider tensor's last dimension, as the
+    backward of a concatenation gives it) against its plain version, on
+    inputs holding exact zeros of both signs, and the autograd Function's
+    gradient: 1 at x >= 0 (flax's), the slope below."""
+    from crfconv_tpu_torch.ops import activation
+
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(numel + offset, generator=g)
+    x[::7] = 0.0
+    x[3::7] = -0.0
+    x, gr = x.to(dev)[offset:], torch.randn(numel, generator=g).to(dev)
+    if sliced:   # rows of 13 of 16 columns
+        x = x.view(-1, 13)
+        gr = torch.randn(x.shape[0], 16, generator=g).to(dev)[:, 2:15]
+    for slope in (0.1, 0.01):
+        got = activation.leaky_relu_bwd(x, gr, slope)
+        assert torch.equal(got, activation.leaky_relu_bwd_plain(x, gr, slope))
+        xr = x.clone().requires_grad_()
+        activation.leaky_relu(xr, slope).backward(gr)
+        assert torch.equal(xr.grad, got)
+        assert torch.equal(got[x == 0], gr[x == 0])
 
 
 def test_kernels_without_backward_raise_under_grad(dev):
