@@ -41,7 +41,11 @@
     label_offset 1): one warm-up request and one warm-up train step,
     recording every kernel call of each (K1, K2, K9, K10 in the request;
     K1, K2, K8, K9-K12 and the leaky ReLU's backward in the step), each
-    held against its plain version and timed as in 3.
+    held against its plain version and timed as in 3 (K2 bit-equal on
+    every call of every path); each K11 call (and K14's in 14) is run
+    twice (bit-identical) and every tenth, the first reverse step of each
+    core, held bit-equal to the plain version on CPU copies; the reverse
+    steps' plans (S~^T's structure, built once a backward) are timed.
 11. ScanNet serving main path: SCANNET_REQUESTS requests through
     Predictor with seeded weights; outputs and exact launch counts; one
     forward with the kernels against one through the plain versions on the
@@ -51,7 +55,8 @@
     its phases and a profile.
 13. A ScanNet train step with the kernels against one through the plain
     versions differentiated by autograd, from one state and pyramid, as in
-    8, and a second kernel step for the atomics' run-to-run spread.
+    8, and a second kernel step, which prints whether its gradients are
+    bit-identical (K8, K11 and K14 add without atomics).
 14. ScanNet-discrete (BaselineDiscreteCRFSegNet(20 classes, steps=10), B16 x
     8192, label_offset 1): a warm-up request (pyramid, forward, the last
     head log q, as the JAX package serves a two-head model) and a warm-up
@@ -173,15 +178,19 @@ SCANNET_PER_REQUEST = {
 }
 # per ScanNet train step: the forward's, and in the backward K8 for every
 # gather whose source needs a gradient (not the 4 + 4 gathers of
-# positions), 10 reverse steps (K11) and one neighbour dot (K12) per core,
-# and one leaky-ReLU backward per activation
+# positions), per core one build of the transpose's structure and 10
+# reverse steps (K11) and one neighbour dot (K12), and one leaky-ReLU
+# backward per activation
 SCANNET_PER_STEP = {
     **SCANNET_PER_REQUEST,
     "windowed_gather_bwd": 10 + 4 + 4,
-    "crf_iterate_bwd": 4 * 10,
+    "crf_iterate_bwd": 4 * (1 + 10),
     "crf_neighbor_dot": 4,
     "leaky_relu_bwd": 41,
 }
+# calls of each wrapper per ScanNet step: K11's reverse steps alone (its
+# plan is built outside the wrapper)
+SCANNET_CALLS_PER_STEP = {**SCANNET_PER_STEP, "crf_iterate_bwd": 4 * 10}
 DISCRETE_REQUESTS = 3
 # launches per B16 x 8192 ScanNet-discrete request with
 # BaselineDiscreteCRFSegNet(steps=10): K1 is the encoder's 10 gathers, 2 per
@@ -208,15 +217,16 @@ DISCRETE_PER_REQUEST = {
 }
 # per ScanNet-discrete train step: the forward's, and in the backward K8 for
 # every gather whose source needs a gradient (not the 4 + 1 of positions),
-# 10 reverse steps (K14), one neighbour dot (K12) and one leaky-ReLU
-# backward per activation
+# one build of the transpose's structure and 10 reverse steps (K14), one
+# neighbour dot (K12) and one leaky-ReLU backward per activation
 DISCRETE_PER_STEP = {
     **DISCRETE_PER_REQUEST,
     "windowed_gather_bwd": 10 + 4 + 1,
-    "discrete_iterate_bwd": 10,
+    "discrete_iterate_bwd": 1 + 10,
     "crf_neighbor_dot": 1,
     "leaky_relu_bwd": 37,
 }
+DISCRETE_CALLS_PER_STEP = {**DISCRETE_PER_STEP, "discrete_iterate_bwd": 10}
 EXACT_REQUESTS = 3
 EXACT = None    # NeighborMode("exact"), set in main() after the import check
 # launches per exact-regime request: K6 selects every kNN of the pyramid (a
@@ -514,10 +524,10 @@ def compare(name, args, got, ref):
         expect(torch.equal(got, ref), "windowed_gather: not bit-equal")
         return float((got - ref).abs().max()) if got.numel() else 0.0
     if name == "window_knn":
+        # distinct keys, the same distance rounding: one answer
         pos = args[0]
         same = len(args) < 3 or args[2] is None
-        agree = float((got == ref).float().mean())
-        expect(agree >= 0.999, f"window_knn: agreement {agree}")
+        expect(torch.equal(got, ref), "window_knn: not bit-equal")
         g = got.cpu().numpy()
         cons = check_window_consistency(g, pos.shape[1])
         expect(cons == 1.0, f"window_knn: window consistency {cons}")
@@ -570,31 +580,16 @@ def compare(name, args, got, ref):
         expect(torch.equal(got, ref), f"{name}: not bit-equal")
         return float((got - ref).abs().max()) if got.numel() else 0.0
     if name == "crf_iterate_bwd":
-        from crfconv_tpu_torch.ops.crf_core import (
-            _message, crf_iterate_bwd_plain,
-        )
+        from crfconv_tpu_torch.ops.crf_core import _message
         lam, x, s_, col, m = args[:5]
         # dmsg (one order, as the plain version) and dzp + lam: bit-equal
         expect(torch.equal(got[1], ref[1]) and torch.equal(got[2], ref[2]),
                "crf_iterate_bwd: dmsg or dzp not bit-equal")
-        # lam_t: f32 atomics in another order than index_add_; the
-        # rounding scales with the magnitudes summed into each row. Both
-        # add with atom.add.f32, which flushes subnormal inputs and results
-        # to zero: each of a row's adds may lose up to 2^-126 in another
-        # order (the similarity's far slots are subnormal)
-        mass = crf_iterate_bwd_plain(lam.abs(), x, s_, col, m.abs(),
-                                     *args[5:7])[0]
-        terms = crf_iterate_bwd_plain(   # adds into each row
-            torch.ones_like(lam[..., :1]), torch.zeros_like(x[..., :1]),
-            torch.ones_like(s_), col, torch.ones_like(m[:1, :1]),
-            torch.zeros_like(lam[..., :1]), torch.zeros_like(m[:1, :1]))[0]
-        tiny = torch.finfo(torch.float32).tiny
-        expect(bool(((got[0] - ref[0]).abs()
-                     <= 1e-5 * ref[0].abs() + 1e-6 * mass
-                     + 2 * tiny * terms).all()),
-               "crf_iterate_bwd: lam outside 1e-5 |ref| + 1e-6 mass + "
-               "2 * 2^-126 per add")
-        # dM: block sums and atomics into the running sum against one
+        # lam_t: within the rounding bound of the exact sum over the
+        # kernel's dmsg (the plain version's index_add_ on the card adds
+        # with atomics, which flush subnormals)
+        lam_bound(name, got[0], s_, col, got[1])
+        # dM: chunk sums added in order into the running sum against one
         # product over every row added to it (B*N terms, 131072 at deconv1:
         # float32 rounding grows with their count in either order, at the
         # scale of the running sum and of the products)
@@ -625,28 +620,12 @@ def compare(name, args, got, ref):
                    f"{name}: msg not bit-equal")
         return d_q
     if name == "discrete_iterate_bwd":
-        from crfconv_tpu_torch.ops.crf_core import crf_iterate_bwd_plain
         lam, qn, msg, w_, col, c_, du, dc = args[:8]
         # dmsg and du + dz: one order, as the plain version
         expect(torch.equal(got[1], ref[1]) and torch.equal(got[2], ref[2]),
                f"{name}: dmsg or du not bit-equal")
-        # lam_t: f32 atomics, held as K11's lam (2^-126 per flushed add)
-        eye = torch.eye(c_.shape[0], device=c_.device)
-        zero_rows = torch.zeros_like(lam[..., :1])
-        mass = crf_iterate_bwd_plain(ref[1].abs(), torch.zeros_like(lam),
-                                     w_.abs(), col, eye, torch.zeros_like(lam),
-                                     torch.zeros_like(dc))[0]
-        terms = crf_iterate_bwd_plain(
-            torch.ones_like(zero_rows), zero_rows, torch.ones_like(w_), col,
-            torch.ones_like(eye[:1, :1]), zero_rows,
-            torch.zeros_like(eye[:1, :1]))[0]
-        tiny = torch.finfo(torch.float32).tiny
-        expect(bool(((got[0] - ref[0]).abs()
-                     <= 1e-5 * ref[0].abs() + 1e-6 * mass
-                     + 2 * tiny * terms).all()),
-               f"{name}: lam outside 1e-5 |ref| + 1e-6 mass + 2 * 2^-126 "
-               "per add")
-        # dC: block sums and atomics into the running sum, as K11's dM
+        lam_bound(name, got[0], w_, col, got[1])   # as K11's lam_t
+        # dC: chunk sums added in order into the running sum, as K11's dM
         l = lam.shape[-1]
         dz = (got[2] - du).abs()
         dc_mass = dc.abs() + msg.abs().reshape(-1, l).T @ dz.reshape(-1, l)
@@ -701,6 +680,91 @@ def check_gather_bwd(kernel, args, kwargs, got, path) -> None:
         rec[2] = (rec[2] or 0) + equal
         expect(equal, f"windowed_gather_bwd ({path}): not bit-equal to the "
                "plain version on the CPU")
+
+
+def lam_bound(name, lam_t, w, col, dmsg) -> None:
+    """lam_t = S~^T dmsg against its exact sum (float64) over the same
+    products: any order of a row's n terms w * dmsg, each rounded, lies
+    within g sum|term| of it, g = n u / (1 - n u), u = 2^-24, plus 2^-150
+    a product that rounds to a subnormal; no allowance for flushed adds.
+    Records the kernel's fraction of the bound in OF_BOUND."""
+    from crfconv_tpu_torch.ops.crf_core import crf_iterate_bwd_plain
+
+    b, n, h = dmsg.shape
+    eye = torch.eye(h, dtype=torch.float64, device=dmsg.device)
+    zero = torch.zeros_like(dmsg, dtype=torch.float64)
+
+    def transpose(ws, d):   # S~^T d in float64 (d as dmsg, M = I)
+        return crf_iterate_bwd_plain(d, zero, ws, col, eye, zero,
+                                     torch.zeros_like(eye))[0]
+
+    exact = transpose(w.double(), dmsg.double())
+    mass = transpose(w.double().abs(), dmsg.double().abs())
+    ones = torch.ones_like(zero[..., :1])
+    terms = crf_iterate_bwd_plain(
+        ones, zero[..., :1], torch.ones_like(w, dtype=torch.float64), col,
+        eye[:1, :1], zero[..., :1], torch.zeros_like(eye[:1, :1]))[0]
+    nu = terms * 2.0 ** -24
+    bound = nu / (1 - nu) * mass + terms * 2.0 ** -150
+    frac = float(((lam_t.double() - exact).abs() / bound).nan_to_num(0.0)
+                 .max())
+    OF_BOUND[name] = [max(frac, OF_BOUND.get(name, [0.0])[0]), None]
+    expect(frac <= 1.0, f"{name}: lam_t outside the rounding bound of the "
+           f"exact sum ({frac:.7g} of it)")
+
+
+# K11's and K14's determinism checks per path: [calls, reruns
+# bit-identical, calls held to the plain version on CPU copies, of those
+# bit-equal]. The CPU check takes the first reverse step of each core's
+# backward (every REVERSE_CPU_EVERY-th call: 10 steps a core)
+REVERSE_CHECKS = {}
+REVERSE_CPU_EVERY = 10
+
+
+def check_reverse(name, kernel, plain, i, args, kwargs, got, path) -> None:
+    """A second launch of a reverse step (K11, K14) is bit-identical in
+    every output; on every REVERSE_CPU_EVERY-th call the step is bit-equal
+    to the plain version run on CPU copies of the inputs (lam_t adds in
+    index_add_'s CPU order, dmsg and the running sum of dzp or du in the
+    plain version's; dM or dC is held to its bound in compare)."""
+    rec = REVERSE_CHECKS.setdefault(f"{name} ({path})", [0, 0, 0, 0])
+    rec[0] += 1
+    again = kernel(*args, **kwargs)
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
+    rec[1] += same
+    expect(same, f"{name} ({path}): a rerun is not bit-identical")
+    if i % REVERSE_CPU_EVERY:
+        return
+    rec[2] += 1
+    cpu = [a.cpu() if isinstance(a, torch.Tensor) else a for a in args]
+    ref = plain(*cpu)
+    equal = all(torch.equal(a.cpu(), r) for a, r in zip(got[:3], ref[:3]))
+    rec[3] += equal
+    expect(equal, f"{name} ({path}): lam_t, dmsg or the running sum not "
+           "bit-equal to the plain version on the CPU")
+
+
+def plan_ms(name, calls) -> dict:
+    """Build time of the distinct plans (S~^T's structure, W^T, the
+    workspaces) that the recorded reverse steps shared: one a core's
+    backward, outside the steps' own times."""
+    from crfconv_tpu_torch.ops import crf_core, discrete_core
+
+    build = (crf_core.crf_reverse_plan if name == "crf_iterate_bwd"
+             else discrete_core.discrete_reverse_plan)
+    w_at = 3 if name == "crf_iterate_bwd" else 4   # col, then the matrix
+    plans = {}
+    for args, kwargs in calls:
+        plans.setdefault(id(kwargs["plan"]),
+                         (args[w_at], args[w_at + 1],
+                          kwargs["plan"].geometry))
+    jobs = list(plans.values())
+
+    def run():
+        return [build(col, w, *geo) for col, w, geo in jobs]
+
+    return {"plans": len(jobs), "ms": median_ms(run),
+            "device_ms": device_ms(run)[0], "host_us": host_us(run, len(jobs))}
 
 
 def library_call(name, args):
@@ -775,13 +839,15 @@ def host_split_us(kernel, calls) -> dict:
 def kernel_phase(name, kernel, plain, calls, path):
     err, bound_ms, by_ops = 0.0, 0.0, {"bytes": 0.0, "operations": 0.0}
     ref_max = 0.0
-    for args, kwargs in calls:
+    for i, (args, kwargs) in enumerate(calls):
         got = kernel(*args, **kwargs)
         ref = plain(*args, **kwargs)
         torch.cuda.synchronize()
         err = max(err, compare(name, args, got, ref))
         if name == "windowed_gather_bwd":
             check_gather_bwd(kernel, args, kwargs, got, path)
+        if name in ("crf_iterate_bwd", "discrete_iterate_bwd"):
+            check_reverse(name, kernel, plain, i, args, kwargs, got, path)
         ref_max = max([ref_max] + [
             float(r.abs().max()) for r in (ref if isinstance(ref, tuple)
                                            else (ref,))
@@ -807,6 +873,9 @@ def kernel_phase(name, kernel, plain, calls, path):
         library_ms = median_ms(lambda: [f() for f in libs])
         library_device_ms = device_ms(lambda: [f() for f in libs])[0]
     split = host_split_us(kernel, calls) if name == "windowed_gather" else None
+    plans = (plan_ms(name, calls) if name in ("crf_iterate_bwd",
+                                              "discrete_iterate_bwd")
+             else None)
     return {
         "name": name,
         "route": "cuda",
@@ -827,6 +896,7 @@ def kernel_phase(name, kernel, plain, calls, path):
         "calls": len(calls),
         "of_bound": of_bound,
         "host_split_us": split,
+        "plan": plans,
     }
 
 
@@ -1039,10 +1109,13 @@ def print_phase(r) -> None:
           f"{r['library_device_ms']}), max_abs_err "
           f"{r['max_abs_err']:.3g} (max |plain| {r['max_abs_ref']:.3g})"
           + ("" if r["of_bound"] is None else
-             f", of rounding bound: kernel {r['of_bound'][0]:.7g}, plain "
-             f"{r['of_bound'][1]:.7g}")
+             f", of rounding bound: kernel {r['of_bound'][0]:.7g}"
+             + ("" if r["of_bound"][1] is None else
+                f", plain {r['of_bound'][1]:.7g}"))
           + ("" if r["host_split_us"] is None else
-             f", host us a call {r['host_split_us']}"), flush=True)
+             f", host us a call {r['host_split_us']}")
+          + ("" if r["plan"] is None else
+             f", plans built {r['plan']}"), flush=True)
 
 
 def leaky_backward_ab(step, rows) -> dict:
@@ -1350,7 +1423,7 @@ def small_train_path(label, state, raws, train_step, dev, cfg, expected,
 def small_kernel_vs_plain_step(label, make_state, raw, dev, cfg, plain_pairs,
                                expected, plain_launches, loss_rtol):
     """From one state and one pyramid: a train step through the kernels, a
-    second one for the atomics' run-to-run spread, and one with
+    second one for the run-to-run spread, and one with
     ``plain_pairs`` patched in, differentiated by autograd. Launch counts
     (``expected`` for the kernel step, ``plain_launches`` for the plain
     one), the losses within ``loss_rtol``, every gradient within its
@@ -1389,10 +1462,11 @@ def small_kernel_vs_plain_step(label, make_state, raw, dev, cfg, plain_pairs,
     d_rerun, worst_rerun, _ = grad_gap(sk.model, sk2.model)
     expect(d_rerun <= 1.0, f"{label} kernel step rerun: gradient of "
            f"{worst_rerun} at {d_rerun:.3g} of its tolerance")
-    rerun_bit_equal = all(
-        torch.equal(p.grad, q.grad)
-        for p, q in zip(sk.model.parameters(), sk2.model.parameters())
-    )
+    rerun_differs = [
+        nm for (nm, p), q in zip(sk.model.named_parameters(),
+                                 sk2.model.parameters())
+        if not torch.equal(p.grad, q.grad)]
+    rerun_bit_equal = not rerun_differs
     a_sd, b_sd = snapshot(sk.model), snapshot(sp.model)
     pnames = {nm for nm, _ in sk.model.named_parameters()}
     off = [nm for nm in b_sd if not torch.allclose(
@@ -1407,7 +1481,8 @@ def small_kernel_vs_plain_step(label, make_state, raw, dev, cfg, plain_pairs,
     print(f"# {label} train step kernels vs plain (one pyramid): loss "
           f"{loss_k} vs {loss_p}, worst gradient {worst} at {d_grad:.3g} of "
           f"its tolerance (largest |grad| {g_max:.3g}); kernel step rerun: "
-          f"gradients bit-equal {rerun_bit_equal}, worst {worst_rerun} at "
+          f"gradients bit-equal {rerun_bit_equal} ({len(rerun_differs)} "
+          f"differ: {rerun_differs[:6]}), worst {worst_rerun} at "
           f"{d_rerun:.3g}; step on a built pyramid {kernel_step_ms:.3f} ms, "
           f"plain versions {plain_step_ms:.3f} ms", flush=True)
     return {
@@ -1415,6 +1490,7 @@ def small_kernel_vs_plain_step(label, make_state, raw, dev, cfg, plain_pairs,
         "grad_worst": worst, "grad_max": g_max,
         "rerun_grad_of_tolerance": d_rerun,
         "rerun_grads_bit_equal": rerun_bit_equal,
+        "rerun_grads_differ": rerun_differs,
         "kernel_step_ms": kernel_step_ms, "plain_step_ms": plain_step_ms,
     }
 
@@ -1532,7 +1608,7 @@ def scannet_phases(dev, rng, out_dir: str, results: dict) -> dict:
     )
     torch.cuda.synchronize()
     for name, got in calls.items():
-        per = SCANNET_PER_STEP[name]
+        per = SCANNET_CALLS_PER_STEP[name]
         expect(len(got) == per,
                f"scannet {name}: {len(got)} calls per step, expected {per}")
     run_phases(results, "scannet train", train_sites, calls)
@@ -1621,9 +1697,9 @@ def scannet_phases(dev, rng, out_dir: str, results: dict) -> dict:
     torch.cuda.empty_cache()
 
     # 13. one state, one pyramid: kernels vs plain versions, and a second
-    # kernel step for the atomics' run-to-run spread (K8, K11); the
-    # forward is bit-equal (K1, K9, K10), so the loss is; the backward
-    # differs by the order of K8's and K11's atomics and K12's sums
+    # kernel step for the run-to-run spread; the forward is bit-equal (K1,
+    # K9, K10), so the loss is; the backward differs from the plain one by
+    # the order of autograd's atomics and K11's and K12's sums
     step_check = small_kernel_vs_plain_step(
         "scannet", lambda: scannet_state(cfg, dev), raws[0], dev, cfg,
         scannet_plain_pairs(), {**SCANNET_PER_STEP, "window_knn": 0}, {},
@@ -1782,7 +1858,7 @@ def discrete_phases(dev, rng, out_dir: str, results: dict) -> dict:
     )
     torch.cuda.synchronize()
     for name, got in calls.items():
-        per = DISCRETE_PER_STEP[name]
+        per = DISCRETE_CALLS_PER_STEP[name]
         expect(len(got) == per,
                f"discrete {name}: {len(got)} calls per step, expected {per}")
     run_phases(results, "discrete train", train_sites, calls)
@@ -1863,10 +1939,11 @@ def discrete_phases(dev, rng, out_dir: str, results: dict) -> dict:
     torch.cuda.empty_cache()
 
     # one state, one pyramid: kernels vs plain versions, and a second kernel
-    # step for the atomics' run-to-run spread (K8, K14). The built pyramid
-    # leaves one K2 launch, the CRF's kNN(32), in both steps. K13 may round
-    # its exp apart from torch's, so the losses may part in the last bits;
-    # the backward differs by K8's and K14's atomics
+    # step for the run-to-run spread. The built pyramid leaves one K2
+    # launch, the CRF's kNN(32), in both steps. K13 may round its exp apart
+    # from torch's, so the losses may part in the last bits; the backward
+    # differs from the plain one by the order of autograd's atomics and
+    # K14's sums
     step_check = small_kernel_vs_plain_step(
         "discrete", lambda: discrete_state(cfg, dev), raws[0], dev, cfg,
         discrete_plain_pairs(), {**DISCRETE_PER_STEP, "window_knn": 1},
@@ -2547,7 +2624,7 @@ def main() -> int:
         phases = results[name]
         r = {k: v for k, v in phases[0].items()
              if k not in ("path", "calls", "max_abs_ref", "of_bound",
-                          "host_split_us", "device_kernels")}
+                          "host_split_us", "plan", "device_kernels")}
         r["max_abs_err"] = max(p["max_abs_err"] for p in phases)
         r["launches"] = sum(LAUNCHES[name].values())
         r["launches_by_path"] = LAUNCHES[name]
@@ -2560,7 +2637,7 @@ def main() -> int:
                                "ms", "device_ms", "host_us", "plain_ms",
                                "bound_ms", "bound_by", "library_ms",
                                "library_device_ms", "of_bound",
-                               "host_split_us", "device_kernels")}
+                               "host_split_us", "plan", "device_kernels")}
             for p in phases
         ]
         kernels.append(r)
@@ -2590,6 +2667,10 @@ def main() -> int:
             path: {"calls": c, "reruns_bit_identical": r,
                    "bit_equal_to_cpu_plain": e}
             for path, (c, r, e) in BWD_CHECKS.items()},
+        "reverse_step_checks": {
+            key: {"calls": c, "reruns_bit_identical": r, "cpu_checked": k,
+                  "bit_equal_to_cpu_plain": e}
+            for key, (c, r, k, e) in REVERSE_CHECKS.items()},
         "failures": FAILURES,
         "script_s": time.perf_counter() - t_start,
     }

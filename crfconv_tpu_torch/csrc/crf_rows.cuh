@@ -26,11 +26,26 @@ __host__ __device__ inline CrfRows crf_rows(int h) {
   return g;
 }
 
-// msg[r * h + c] = sum_j s[m, j] * x[b, col[m, j], c] for the block's rows
-// m = row0 + r (zero beyond the last row), j ascending from zero, each
-// product and sum rounded on its own; slots with col < 0 add nothing (their
-// row reads zero). c is fastest across threads, so a row of x is read in
-// full sectors.
+// msg[m, c] = sum_j s[m, j] * x[b, col[m, j], c], j ascending from zero,
+// each product and sum rounded on its own; slots with col < 0 add nothing
+// (their row reads zero).
+__device__ __forceinline__ float crf_message_at(
+    const float* __restrict__ x, const float* __restrict__ s,
+    const int* __restrict__ col, long long m, int c, int n, int k, int h) {
+  const float* xb = x + (m / n) * n * (long long)h + c;
+  const int* cm = col + m * k;
+  const float* sm = s + m * k;
+  float acc = 0.0f;
+  for (int j = 0; j < k; ++j) {
+    const int cj = cm[j];
+    if (cj >= 0) acc = __fadd_rn(acc, __fmul_rn(sm[j], xb[(long long)cj * h]));
+  }
+  return acc;
+}
+
+// msg[r * h + c] = crf_message_at(m = row0 + r, c) for the block's rows
+// (zero beyond the last). c is fastest across threads, so a row of x is
+// read in full sectors.
 __device__ __forceinline__ void crf_message(
     const float* __restrict__ x, const float* __restrict__ s,
     const int* __restrict__ col, float* msg, long long row0, int r_count,
@@ -39,16 +54,6 @@ __device__ __forceinline__ void crf_message(
     const int r = e / h;
     const int c = e - r * h;
     const long long m = row0 + r;
-    float acc = 0.0f;
-    if (m < rows) {
-      const float* xb = x + (m / n) * n * (long long)h + c;
-      const int* cm = col + m * k;
-      const float* sm = s + m * k;
-      for (int j = 0; j < k; ++j) {
-        const int cj = cm[j];
-        if (cj >= 0) acc = __fadd_rn(acc, __fmul_rn(sm[j], xb[(long long)cj * h]));
-      }
-    }
-    msg[e] = acc;
+    msg[e] = m < rows ? crf_message_at(x, s, col, m, c, n, k, h) : 0.0f;
   }
 }

@@ -19,35 +19,28 @@
 // torch.topk over the same keys, gives the same indices bit for bit.
 //
 // Design, k <= 32: one warp a row, and the warp keeps the k smallest keys
-// seen so far sorted across its lanes (lane i holds the i-th). The lanes
-// read the row once, coalesced, four floats a load where width % 4 == 0
-// and the block starts on 16 bytes; each step every lane offers one key,
-// a ballot finds the keys below the k-th kept one, and each of those is
-// inserted in a few shuffles (its rank is a ballot's popcount, the keys
-// above it move up one lane). The threshold is the warp's true k-th
-// smallest, so after the first k keys insertions are rare: about
-// k (1 + ln(width / k)) a row, where a lane's own list of its k smallest
-// would admit most keys while it fills. The result is the first k lanes,
-// already in order. Other k take the generic path: k rounds, each a pass
+// seen so far sorted across its lanes (warp_select.cuh, shared with K2).
+// The lanes read the row once, coalesced, four floats a load where
+// width % 4 == 0 and the block starts on 16 bytes; each step every lane
+// offers one key, a ballot admits the keys below the k-th kept one, and
+// each is inserted in a few shuffles: about k (1 + ln(width / k))
+// insertions a row. The result is the first k lanes, already in order. Other k take the generic path: k rounds, each a pass
 // over the row for the least key above the previous pick.
 //
 // Bound: bytes (d read once, idx written once). At B8 x 8192 the flagship
 // pyramid's blocks are 2.86 GB a request, 0.855 ms on 3.35 TB/s.
-#include <climits>
 #include <cstdint>
 
 #include <cuda_runtime.h>
+
+#include "warp_select.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr unsigned kAll = 0xFFFFFFFFu;
-
-__device__ __forceinline__ int order_bits(float x) {
-  const int b = __float_as_int(x);
-  return b ^ ((b < 0) ? 0x7FFFFFFF : 0);
-}
+using warp_select::order_bits;
+using warp_select::warp_min;
 
 template <bool kExact>
 struct Key;
@@ -72,16 +65,6 @@ struct Key<false> {
   }
   __device__ static int col(T key) { return key & 1023; }
 };
-
-template <typename T>
-__device__ __forceinline__ T warp_min(T v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    const T other = __shfl_xor_sync(kAll, v, off);
-    v = other < v ? other : v;
-  }
-  return v;
-}
 
 template <bool kExact>
 __global__ void __launch_bounds__(kThreads)
@@ -111,23 +94,8 @@ select_min_k_kernel(const float* __restrict__ d, int* __restrict__ out,
     return;
   }
 
-  T kept = K::kMax;    // lane i: the i-th smallest key kept so far
-  T limit = K::kMax;   // the k-th (lane k - 1's); only keys below it enter
-  // every lane offers one key (K::kMax offers nothing)
-  auto offer = [&](T key) {
-    unsigned below = __ballot_sync(kAll, key < limit);
-    while (below) {
-      const int src = __ffs(below) - 1;
-      below &= below - 1;
-      const T x = __shfl_sync(kAll, key, src);
-      if (x < limit) {   // the same on every lane
-        const int rank = __popc(__ballot_sync(kAll, kept < x));
-        const T up = __shfl_up_sync(kAll, kept, 1);
-        kept = lane == rank ? x : (lane > rank ? up : kept);
-        limit = __shfl_sync(kAll, kept, k - 1);
-      }
-    }
-  };
+  warp_select::MinK<T> top(k, lane);
+  auto offer = [&](T key) { top.offer(key); };
   auto offer4 = [&](float4 v, int col, bool in) {
     offer(in ? K::make(v.x, col) : K::kMax);
     offer(in ? K::make(v.y, col + 1) : K::kMax);
@@ -151,7 +119,7 @@ select_min_k_kernel(const float* __restrict__ d, int* __restrict__ out,
       offer(c < width ? K::make(__ldcs(dr + c), c) : K::kMax);
     }
   }
-  if (lane < k) orow[lane] = K::col(kept);
+  if (lane < k) orow[lane] = K::col(top.kept);
 }
 
 template <bool kExact>

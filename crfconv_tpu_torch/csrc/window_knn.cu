@@ -12,52 +12,90 @@
 // changes the rounding: the kernel selects the same indices as the plain
 // version bit for bit.
 //
-// Selection orders candidates by a 64-bit key (k32 << 32) | column, with
-// k32 the order-preserving int32 image of d. Exact mode keeps all 32 bits
-// (ties broken by lowest index, as lax.top_k); packed mode clears the low
-// 11 bits (distances within ~2^-13 relative count as ties), the order of
-// the TPU kernel's packed int32 key without its 2048-column limit. Each of
-// the k rounds takes the least key above the previous pick, so nothing is
-// written back between rounds.
+// Selection orders candidates by distinct keys, k32 the order-preserving
+// int32 image of d + 0.0 (-0 -> +0): exact mode the 64-bit (k32 << 32) |
+// column (ties to the lowest index, as lax.top_k); packed mode clears the
+// low 11 bits of k32 (distances within ~2^-13 relative tie), the TPU
+// kernel's packed int32 key (k32 & ~2047) | column, which orders exactly as
+// the 64-bit ((k32 & ~2047) << 32) | column while width <= 2048; wider
+// packed windows take that 64-bit key.
 //
-// Bound: operations. Per query the kernel forms `width` distances and runs
-// k rounds of a warp arg-min over them; the bytes (positions in, k indices
-// out) are small. One block per (tile, batch) stages the window's x, y, z
-// and |p|^2 in shared memory (4 * width floats); one warp per query keeps
-// its distance row in shared memory and reduces with shuffles.
-#include <climits>
+// Design: one block per (tile, batch) stages the window's x, y, z and
+// |p|^2 in shared memory (4 * width floats); one warp per query forms its
+// distances in registers, 32 columns a step, and selects in one pass: for
+// k = 1 each lane keeps its least key and the warp takes the least of
+// them; for k <= 32 (warp_select.cuh, shared with K6) the first 32 keys
+// are sorted across the lanes by a bitonic network, then each step's keys
+// are offered, a ballot admitting those below the k-th kept one. Larger k
+// take k rounds, each the least key above the previous pick, the
+// distances formed again each round. Where tiles are few (the coarse
+// scales) a tile's queries are split over up to 8 blocks, each staging
+// the window.
+//
+// Bound: operations. Per query the kernel forms `width` distances (8
+// operations each) and compares each key at least once; the bytes
+// (positions in, k indices out) are small.
+#include <cstdint>
+#include <cstring>
 
 #include <math_constants.h>
 
-#include "window.cuh"
+#include "warp_select.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
+using warp_select::kAll;
+using warp_select::Max;
 
 __device__ __forceinline__ float sq3(float x, float y, float z) {
   return __fadd_rn(__fadd_rn(__fmul_rn(x, x), __fmul_rn(y, y)),
                    __fmul_rn(z, z));
 }
 
-__device__ __forceinline__ long long select_key(float d, int j, int exact) {
-  d = __fadd_rn(d, 0.0f);  // -0 -> +0, so integer order equals float order
-  int k32 = __float_as_int(d);
-  k32 ^= (k32 < 0) ? 0x7FFFFFFF : 0;
-  if (!exact) k32 &= ~2047;
-  return (long long)(((unsigned long long)(unsigned)k32 << 32) |
-                     (unsigned)j);
+// packed, width <= 2048: the int32 (k32 & ~2047) | column
+struct Key32 {
+  using T = int;
+  __device__ static T make(float d, int j, bool) {
+    return (warp_select::order_bits(__fadd_rn(d, 0.0f)) & ~2047) | j;
+  }
+  __device__ static int col(T key) { return key & 2047; }
+};
+
+// exact, or packed wider than 2048: the int64 (k32 << 32) | column
+struct Key64 {
+  using T = long long;
+  __device__ static T make(float d, int j, bool exact) {
+    int k32 = warp_select::order_bits(__fadd_rn(d, 0.0f));
+    if (!exact) k32 &= ~2047;
+    return (T)(((unsigned long long)(unsigned)k32 << 32) | (unsigned)j);
+  }
+  __device__ static int col(T key) { return (int)(key & 0xFFFFFFFFLL); }
+};
+
+// the 32 lanes' keys sorted ascending across the lanes
+template <typename T>
+__device__ __forceinline__ T warp_sort(T v, int lane) {
+#pragma unroll
+  for (int size = 2; size <= 32; size <<= 1) {
+#pragma unroll
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+      const T other = __shfl_xor_sync(kAll, v, stride);
+      const bool keep_min = ((lane & stride) == 0) == ((lane & size) == 0);
+      v = keep_min ? (other < v ? other : v) : (other < v ? v : other);
+    }
+  }
+  return v;
 }
 
-}  // namespace
-
-__global__ void window_knn_kernel(const float* __restrict__ q,
-                                  const float* __restrict__ pos,
-                                  const int* __restrict__ starts,
-                                  int* __restrict__ out, int m, int n, int k,
-                                  int tile, int width, int front,
-                                  int self_same, int exact) {
+template <typename K>
+__global__ void __launch_bounds__(kThreads)
+window_knn_kernel(const float* __restrict__ q, const float* __restrict__ pos,
+                  const int* __restrict__ starts, int* __restrict__ out,
+                  int m, int n, int k, int tile, int width, int front,
+                  int self_same, int exact) {
+  using T = typename K::T;
   extern __shared__ float smem[];
   float* wx = smem;
   float* wy = wx + width;
@@ -65,7 +103,6 @@ __global__ void window_knn_kernel(const float* __restrict__ q,
   float* wn = wz + width;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  float* dist = wn + width + warp * width;
 
   const int t = blockIdx.x;
   const int b = blockIdx.y;
@@ -86,59 +123,90 @@ __global__ void window_knn_kernel(const float* __restrict__ q,
   }
   __syncthreads();
 
-  for (int r = warp; r < tile; r += kWarps) {
+  // the tile's queries, split over gridDim.z blocks where tiles are few
+  for (int r = blockIdx.z * kWarps + warp; r < tile;
+       r += kWarps * gridDim.z) {
     const int row = t * tile + r;
     if (row >= m) break;
     const float* qr = q + ((long long)b * m + row) * 3;
     const float qx = qr[0], qy = qr[1], qz = qr[2];
     const float qn = sq3(qx, qy, qz);
     const int self_j = self_same ? row - base : -1;
-    for (int j = lane; j < width; j += 32) {
+    // the key of window column j, or the largest key past the window
+    auto key_at = [&](int j) -> T {
+      if (j >= width) return Max<T>::value;
       const float cross = __fadd_rn(
           __fadd_rn(__fmul_rn(qx, wx[j]), __fmul_rn(qy, wy[j])),
           __fmul_rn(qz, wz[j]));
-      float d = __fadd_rn(__fsub_rn(qn, __fmul_rn(2.0f, cross)), wn[j]);
-      dist[j] = (j == self_j) ? -CUDART_INF_F : d;
-    }
-    __syncwarp();
+      const float d = __fadd_rn(__fsub_rn(qn, __fmul_rn(2.0f, cross)), wn[j]);
+      return K::make(j == self_j ? -CUDART_INF_F : d, j, exact);
+    };
     int* orow = out + ((long long)b * m + row) * k;
-    long long prev = LLONG_MIN;
-    for (int sel = 0; sel < k; ++sel) {
-      long long best = LLONG_MAX;
+    if (k == 1) {   // each lane its least key, then the warp's
+      T best = Max<T>::value;
       for (int j = lane; j < width; j += 32) {
-        const long long key = select_key(dist[j], j, exact);
-        if (key > prev && key < best) best = key;
+        const T key = key_at(j);
+        best = key < best ? key : best;
       }
-      for (int off = 16; off > 0; off >>= 1) {
-        const long long other = __shfl_xor_sync(0xFFFFFFFFu, best, off);
-        best = other < best ? other : best;
-      }
-      prev = best;
-      if (lane == 0) {
-        const int g = base + (int)(best & 0xFFFFFFFFLL);
-        orow[sel] = min(max(g, 0), n - 1);
+      best = warp_select::warp_min(best);
+      if (lane == 0) orow[0] = min(max(base + K::col(best), 0), n - 1);
+    } else if (k <= 32) {
+      warp_select::MinK<T> top(k, lane);
+      top.kept = warp_sort(key_at(lane), lane);
+      top.limit = __shfl_sync(kAll, top.kept, k - 1);
+      for (int j0 = 32; j0 < width; j0 += 32) top.offer(key_at(j0 + lane));
+      if (lane < k)
+        orow[lane] = min(max(base + K::col(top.kept), 0), n - 1);
+    } else {
+      T prev = Max<T>::value;
+      for (int sel = 0; sel < k; ++sel) {
+        T best = Max<T>::value;
+        for (int j = lane; j < width; j += 32) {
+          const T key = key_at(j);
+          if ((sel == 0 || key > prev) && key < best) best = key;
+        }
+        prev = warp_select::warp_min(best);
+        if (lane == 0) orow[sel] = min(max(base + K::col(prev), 0), n - 1);
       }
     }
-    __syncwarp();
   }
 }
 
-extern "C" int window_knn_f32(const void* q, const void* pos,
-                              const void* starts, void* out, int b, int m,
-                              int n, int k, int tile, int width, int front,
-                              int self_same, int exact, void* stream) {
+template <typename K>
+int launch(const float* q, const float* pos, const int* starts, int* out,
+           int b, int m, int n, int k, int tile, int width, int front,
+           int self_same, int exact, cudaStream_t stream) {
   const int nt = (m + tile - 1) / tile;
-  if (b == 0 || nt == 0 || k == 0) return -1;  // nothing to launch
-  const size_t smem = (size_t)(4 + kWarps) * width * sizeof(float);
+  const size_t smem = (size_t)4 * width * sizeof(float);
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
-        window_knn_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        window_knn_kernel<K>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  dim3 grid(nt, b);
-  window_knn_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      (const float*)q, (const float*)pos, (const int*)starts, (int*)out, m, n,
-      k, tile, width, front, self_same, exact);
+  // enough blocks for eight an SM of an H100, up to a warp a query
+  const int split = min((tile + kWarps - 1) / kWarps,
+                        max(1, (132 * 8 + nt * b - 1) / (nt * b)));
+  window_knn_kernel<K><<<dim3(nt, b, split), kThreads, smem, stream>>>(
+      q, pos, starts, out, m, n, k, tile, width, front, self_same, exact);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// The arguments arrive packed as 14 int64s (q, pos, starts, out, b, m, n,
+// k, tile, width, front, self_same, exact, stream).
+extern "C" int window_knn_f32(const char* packed) {
+  long long a[14];
+  memcpy(a, packed, sizeof a);
+  const int b = (int)a[4], m = (int)a[5], n = (int)a[6], k = (int)a[7],
+            tile = (int)a[8], width = (int)a[9], front = (int)a[10],
+            self_same = (int)a[11], exact = (int)a[12];
+  const int nt = (m + tile - 1) / tile;
+  if (b == 0 || nt == 0 || k == 0) return -1;  // nothing to launch
+  if (k > width) return (int)cudaErrorInvalidValue;
+  auto run = !exact && width <= 2048 ? launch<Key32> : launch<Key64>;
+  return run((const float*)a[0], (const float*)a[1], (const int*)a[2],
+             (int*)a[3], b, m, n, k, tile, width, front, self_same, exact,
+             (cudaStream_t)a[13]);
 }

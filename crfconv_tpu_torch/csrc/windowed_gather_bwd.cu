@@ -17,14 +17,14 @@
 // overlap-adds the windows in XLA; it covers the same-scale geometry only.
 //
 // Bound: bytes (g read once, dx written once). Two launches:
-//  1. tile_inverse: one block per (64-row output tile, batch) sorts the
-//     tile's slots by (clamped row relative to the window, slot) in shared
-//     memory: a count per window row, their prefix sum (each row's run),
-//     a place for each slot in its row's run, and a sort of each run by
-//     slot; it writes the sorted slots and the runs' offsets (a CSR of the
-//     tile);
+//  1. tile_inverse (tile_inverse.cuh, shared with K11 and K14): one block
+//     per (64-row output tile, batch) sorts the tile's slots by (clamped
+//     row relative to the window, slot) in shared memory: a count per
+//     window row, their prefix sum (each row's run), a place for each slot
+//     in its row's run, and a sort of each run by slot; it writes the
+//     sorted slots and the runs' offsets (a CSR of the tile);
 //  2. segment_sum: one thread per (dx row, 4 or 1 columns) walks the tiles
-//     whose windows hold its row in ascending order (found by a binary
+//     whose windows hold its row in ascending order (row_tiles: a binary
 //     search over the tiles' window starts, held in shared memory), and
 //     each tile's run for the row, and writes its sum once (0 for a row no
 //     slot reaches). Lanes run across F, so a warp reads whole rows of g.
@@ -33,94 +33,9 @@
 #include <cstdint>
 #include <cstring>
 
-constexpr int kThreads = 256;
+#include "tile_inverse.cuh"
 
-// Exclusive prefix sum of a[0, n) in place, by the whole block. Each
-// thread sums a contiguous chunk, the chunk sums are scanned across the
-// block, and each chunk is rewritten from its offset.
-__device__ void block_exclusive_scan(int* a, int n, int* warp_sums) {
-  const int per = (n + kThreads - 1) / kThreads;
-  const int lo = min(n, threadIdx.x * per), hi = min(n, lo + per);
-  int sum = 0;
-  for (int i = lo; i < hi; ++i) sum += a[i];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  int incl = sum;  // inclusive scan of the chunk sums within the warp
-  for (int d = 1; d < 32; d <<= 1) {
-    const int v = __shfl_up_sync(0xffffffffu, incl, d);
-    if (lane >= d) incl += v;
-  }
-  if (lane == 31) warp_sums[warp] = incl;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    int run = 0;
-    for (int w = 0; w < kThreads / 32; ++w) {
-      const int v = warp_sums[w];
-      warp_sums[w] = run;
-      run += v;
-    }
-  }
-  __syncthreads();
-  int off = warp_sums[warp] + incl - sum;
-  for (int i = lo; i < hi; ++i) {
-    const int v = a[i];
-    a[i] = off;
-    off += v;
-  }
-  __syncthreads();
-}
-
-__global__ void __launch_bounds__(kThreads)
-    tile_inverse_kernel(const int* __restrict__ idx,
-                        const int* __restrict__ starts, int* __restrict__ order,
-                        int* __restrict__ runs, int m, int k, int tile,
-                        int width, int front) {
-  // a counting sort of the tile's slots by window row: count[width + 1]
-  // (the runs' offsets after the scan), then the slots placed by row
-  extern __shared__ int smem[];
-  __shared__ int warp_sums[kThreads / 32];
-  int* count = smem;
-  int* placed = smem + width + 1;
-  const int t = blockIdx.x;
-  const int b = blockIdx.y;
-  const int nt = gridDim.x;
-  const int m0 = t * tile;
-  const int slots = min(tile, m - m0) * k;
-  const int start = starts[t];
-  const int* ib = idx + ((long long)b * m + m0) * k;
-  for (int i = threadIdx.x; i <= width; i += kThreads) count[i] = 0;
-  __syncthreads();
-  for (int s = threadIdx.x; s < slots; s += kThreads)
-    atomicAdd(count + min(max(ib[s] + front - start, 0), width - 1), 1);
-  __syncthreads();
-  block_exclusive_scan(count, width + 1, warp_sums);
-  int* rb = runs + ((long long)b * nt + t) * (width + 1);
-  for (int i = threadIdx.x; i <= width; i += kThreads) rb[i] = count[i];
-  __syncthreads();
-  // each slot takes a place in its row's run (in no fixed order) ...
-  for (int s = threadIdx.x; s < slots; s += kThreads) {
-    const int rel = min(max(ib[s] + front - start, 0), width - 1);
-    placed[atomicAdd(count + rel, 1)] = s;
-  }
-  __syncthreads();
-  // ... and each run is sorted by slot (count[rel] is now its end): runs
-  // hold a few slots each, the window's edge rows all clamped slots
-  for (int rel = threadIdx.x; rel < width; rel += kThreads) {
-    const int lo = rel == 0 ? 0 : count[rel - 1], hi = count[rel];
-    for (int i = lo + 1; i < hi; ++i) {
-      const int v = placed[i];
-      int j = i - 1;
-      while (j >= lo && placed[j] > v) {
-        placed[j + 1] = placed[j];
-        --j;
-      }
-      placed[j + 1] = v;
-    }
-  }
-  __syncthreads();
-  int* ob = order + ((long long)b * m + m0) * k;  // slots within batch b
-  for (int i = threadIdx.x; i < slots; i += kThreads)
-    ob[i] = m0 * k + placed[i];
-}
+constexpr int kThreads = tile_inv::kThreads;
 
 template <bool kVec>
 __global__ void __launch_bounds__(kThreads)
@@ -137,25 +52,7 @@ __global__ void __launch_bounds__(kThreads)
   const int rows = min(rows_per_block, n - r0);
   for (int t = threadIdx.x; t < nt; t += kThreads) tile_start[t] = starts[t];
   __syncthreads();
-  // the tiles whose windows [starts[t] - front, + width) hold each row:
-  // starts ascend, so they are the t with r + front - width < starts[t]
-  // <= r + front
-  for (int i = threadIdx.x; i < rows; i += kThreads) {
-    const int r = r0 + i;
-    int lo = 0, hi = nt;  // first t with starts[t] > r + front - width
-    while (lo < hi) {
-      const int mid = (lo + hi) >> 1;
-      if (tile_start[mid] > r + front - width) hi = mid; else lo = mid + 1;
-    }
-    t_lo[i] = lo;
-    hi = nt;  // first t with starts[t] > r + front
-    while (lo < hi) {
-      const int mid = (lo + hi) >> 1;
-      if (tile_start[mid] > r + front) hi = mid; else lo = mid + 1;
-    }
-    t_hi[i] = lo;
-  }
-  __syncthreads();
+  tile_inv::row_tiles(tile_start, nt, r0, rows, front, width, t_lo, t_hi);
   const int chunks = kVec ? f >> 2 : f;
   const float* gb = g + (long long)b * m * k * ld;
   for (int w = threadIdx.x; w < rows * chunks; w += kThreads) {
@@ -212,17 +109,9 @@ extern "C" int windowed_gather_bwd_f32(const char* packed) {
   cudaStream_t st = (cudaStream_t)stream;
   const int nt = k == 0 ? 0 : (m + tile - 1) / tile;
   if (nt > 0) {
-    const size_t smem = sizeof(int) * (width + 1 + (size_t)tile * k);
-    if (smem > 48 * 1024) {
-      const cudaError_t e = cudaFuncSetAttribute(
-          tile_inverse_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-          (int)smem);
-      if (e != cudaSuccess) return (int)e;
-    }
-    tile_inverse_kernel<<<dim3(nt, b), kThreads, smem, st>>>(
-        (const int*)idx, (const int*)starts, (int*)order, (int*)runs, m, k,
-        tile, width, front);
-    const cudaError_t e = cudaGetLastError();
+    const cudaError_t e = tile_inv::launch_tile_inverse(
+        (const int*)idx, (const int*)starts, (int*)order, (int*)runs, b, m, k,
+        tile, width, front, false, st);
     if (e != cudaSuccess) return (int)e;
   }
   const bool vec = f % 4 == 0 && ld % 4 == 0 &&

@@ -31,7 +31,8 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
 )
-HEADERS = ("window.cuh", "crf_rows.cuh", "point_conv.cuh")
+HEADERS = ("window.cuh", "crf_rows.cuh", "point_conv.cuh", "tile_inverse.cuh",
+           "crf_transpose.cuh", "warp_select.cuh")
 
 NOTHING_LAUNCHED = -1   # an entry point's code for an empty problem
 _P = ctypes.c_void_p
@@ -52,20 +53,23 @@ def find_nvcc() -> str:
 
 
 class Kernel:
-    """One C entry point of one source file; ``launches`` counts calls that
-    launched the kernel."""
+    """One C entry point of one source file, and optionally more entries of
+    the same library that take their arguments packed (``extra``);
+    ``launches`` counts the calls of any entry that launched a kernel."""
 
     def __init__(
         self, name: str, source: str, symbol: str, argtypes: Sequence,
-        flags: Sequence[str] = (),
+        flags: Sequence[str] = (), extra: Sequence[str] = (),
     ):
         self.name = name
         self.source = source
         self.symbol = symbol
         self.argtypes = list(argtypes)
         self.flags = tuple(flags)
+        self.extra = tuple(extra)
         self.launches = 0
         self._fn = None
+        self._extra = {}
 
     def library_path(self) -> Path:
         h = hashlib.sha256()
@@ -84,33 +88,46 @@ class Kernel:
         path = self.library_path()
         if not path.exists():
             build([self])
-        fn = getattr(ctypes.CDLL(str(path)), self.symbol)
+        lib = ctypes.CDLL(str(path))
+        for symbol in self.extra:
+            fn = getattr(lib, symbol)
+            fn.argtypes = [ctypes.c_char_p]
+            fn.restype = ctypes.c_int
+            self._extra[symbol] = fn
+        fn = getattr(lib, self.symbol)
         fn.argtypes = self.argtypes
         fn.restype = ctypes.c_int
         self._fn = fn
 
-    def __call__(self, *args) -> None:
-        if self._fn is None:
-            self._load()
-        rc = self._fn(*args)
+    def _count(self, rc: int, symbol: str) -> None:
         if rc == NOTHING_LAUNCHED:
             return
         if rc != 0:
-            raise RuntimeError(f"{self.name}: CUDA error {rc} at launch")
+            raise RuntimeError(f"{self.name}: CUDA error {rc} at launch of "
+                               f"{symbol}")
         self.launches += 1
 
+    def __call__(self, *args) -> None:
+        if self._fn is None:
+            self._load()
+        self._count(self._fn(*args), self.symbol)
 
-# K1 and K8 take their arguments packed as int64s in one bytes object
-# (``struct.pack``): per call that costs the host a few microseconds less
-# than ctypes' conversion of a dozen arguments, which their wrappers pay
-# on every gather of the forward and backward.
+    def call(self, symbol: str, packed: bytes) -> None:
+        """Launch through the extra entry ``symbol``."""
+        if self._fn is None:
+            self._load()
+        self._count(self._extra[symbol](packed), symbol)
+
+
+# K1, K2, K8, K11 and K14 take their arguments packed as int64s in one
+# bytes object (``struct.pack``): per call that costs the host a few
+# microseconds less than ctypes' conversion of a dozen arguments.
 WINDOWED_GATHER = Kernel(
     "windowed_gather", "windowed_gather.cu", "windowed_gather_f32",
     [ctypes.c_char_p],
 )
 WINDOW_KNN = Kernel(
-    "window_knn", "window_knn.cu", "window_knn_f32",
-    [_P] * 4 + [_I] * 9 + [_P],
+    "window_knn", "window_knn.cu", "window_knn_f32", [ctypes.c_char_p],
     flags=("-fmad=false",),
 )
 POINT_CONV_FUSED_INFER = Kernel(
@@ -139,7 +156,7 @@ CRF_ITERATE = Kernel(
 )
 CRF_ITERATE_BWD = Kernel(
     "crf_iterate_bwd", "crf_iterate_bwd.cu", "crf_iterate_bwd_f32",
-    [_P] * 10 + [_I] * 4 + [_P],
+    [ctypes.c_char_p], extra=("crf_iterate_bwd_transpose_i32",),
 )
 CRF_NEIGHBOR_DOT = Kernel(
     "crf_neighbor_dot", "crf_neighbor_dot.cu", "crf_neighbor_dot_f32",
@@ -155,7 +172,8 @@ DISCRETE_ITERATE = Kernel(
 )
 DISCRETE_ITERATE_BWD = Kernel(
     "discrete_iterate_bwd", "discrete_iterate_bwd.cu",
-    "discrete_iterate_bwd_f32", [_P] * 11 + [_I] * 4 + [_P],
+    "discrete_iterate_bwd_f32", [ctypes.c_char_p],
+    extra=("discrete_iterate_bwd_transpose_i32",),
 )
 SELECT_MIN_K = Kernel(
     "select_min_k", "select_min_k.cu", "select_min_k_f32",

@@ -17,16 +17,21 @@ kernels:
   * K10 ``crf_iterate``: one Jacobi step, x_t -> x_{t+1};
   * K11 ``crf_iterate_bwd``: one step of the reverse recurrence,
     dmsg_t = lam_{t+1} M^T, lam_t = S~^T dmsg_t, dzp += lam_{t+1},
-    dM += msg_t^T lam_{t+1};
+    dM += msg_t^T lam_{t+1}, over S~^T's structure built once per backward
+    call (:class:`ReversePlan`, K8's tile_inverse over the columns);
   * K12 ``crf_neighbor_dot``: ds[m, k] = sum_t <dmsg_t[m], x_t[col[m, k]]>.
 
 Each wrapper runs its plain PyTorch version on CPU tensors and its kernel
-on CUDA tensors. The plain versions of K10 spell out the kernel's sum
-order (k ascending for the message, h ascending for the apply, every
-product and sum rounded on its own), so the two are bit-equal.
+on CUDA tensors. The plain versions of K10 and K11 spell out the kernels'
+sum orders (k ascending for the message, h ascending for the apply, every
+product and sum rounded on its own; lam_t's terms in ascending slot order,
+as ``index_add_`` adds them on the CPU), so the two are bit-equal (K11's
+lam_t to the plain version run on the CPU).
 """
 
 from __future__ import annotations
+
+import struct
 
 import torch
 
@@ -34,13 +39,18 @@ from crfconv_tpu_torch.cuda_build import (
     CRF_ITERATE, CRF_ITERATE_BWD, CRF_NEIGHBOR_DOT, CRF_OPERATOR,
 )
 from crfconv_tpu_torch.ops._launch import (
-    check, check_no_grad, on_cuda, ptr, stream,
+    check, check_no_grad, launch_on, on_cuda, ptr, raw_stream, stream,
 )
 from crfconv_tpu_torch.ops.windowed import (
     PAD, TILE, _clamped_rows, _geometry,
 )
 
 MAX_H = 1024   # widest state the iterate kernels take
+# K11's and K14's arguments, packed as int64s (cuda_build)
+_pack11 = struct.Struct("11q").pack
+_pack25 = struct.Struct("25q").pack
+# blocks of a reverse step's [H, H] partial sums aimed at (four an H100 SM)
+_PART_BLOCKS = 528
 
 
 def spd_inverse(m: torch.Tensor) -> torch.Tensor:
@@ -190,17 +200,68 @@ def crf_iterate_plain(x, zp, s, col, M):
 # ---------------------------------------------------------------------------
 
 
+class ReversePlan:
+    """What the reverse steps of one backward call share (K11's, or K14's
+    through ``kernel``), built once: S~^T's structure over the operator's
+    columns col [B, N, K] (K8's tile_inverse: each 64-row tile's slots
+    sorted by window row, then by slot; a clamped row outside [0, N) is
+    dropped), W^T for the step's matrix W [H, H] (M or C), a workspace row
+    per state row (msg_t or dz_t) and ``parts`` [H, H] partial sums of dW.
+    Its launch counts as one of the kernel's."""
+
+    def __init__(self, kernel, symbol, col, W, tile=TILE, pad=PAD):
+        check(col, "col", torch.int32, 3)
+        B, N, K = col.shape
+        H = W.shape[0]
+        dev = col.device
+        self.starts, self.width, self.front = _geometry(N, N, tile, pad, dev)
+        self.tile = tile
+        self.geometry = (tile, pad)
+        self.shape = (B, N, K, H)
+        n_order = B * N * K
+        self.index = torch.empty(
+            n_order + B * self.starts.shape[0] * (self.width + 1),
+            dtype=torch.int32, device=dev)
+        self.order = self.index.data_ptr()
+        self.runs = self.order + 4 * n_order
+        self.Wt = W.T.contiguous()
+        self.rows = torch.empty((B * N, H), dtype=torch.float32, device=dev)
+        cols = 32 if H <= 32 else (64 if H <= 64 else 128)
+        tiles = -(-H // 32) * -(-H // cols)   # outer_partials' output tiles
+        self.parts = max(1, min(-(-_PART_BLOCKS // tiles), -(-(B * N) // 64)))
+        self.part = torch.empty((self.parts, H, H), dtype=torch.float32,
+                                device=dev)
+        launch_on(dev, kernel.call, symbol, _pack11(
+            col.data_ptr(), self.starts.data_ptr(), self.order, self.runs, B,
+            N, K, tile, self.width, self.front, raw_stream(dev)))
+
+    def check(self, lam, col, W) -> None:
+        B, N, H = lam.shape
+        if (B, N, col.shape[2], H) != self.shape or W.shape != (H, H):
+            raise ValueError(f"plan for {self.shape}, called with lam "
+                             f"{tuple(lam.shape)}, col {tuple(col.shape)}")
+
+
+def crf_reverse_plan(col, M, tile: int = TILE, pad: int = PAD) -> ReversePlan:
+    """K11's :class:`ReversePlan` for the operator's columns ``col`` and M."""
+    return ReversePlan(CRF_ITERATE_BWD, "crf_iterate_bwd_transpose_i32", col,
+                       M, tile, pad)
+
+
 def crf_iterate_bwd(
     lam: torch.Tensor, x: torch.Tensor, s: torch.Tensor, col: torch.Tensor,
     M: torch.Tensor, dzp: torch.Tensor, dM: torch.Tensor,
-    dmsg_out: torch.Tensor = None,
+    dmsg_out: torch.Tensor = None, plan: ReversePlan = None,
 ):
     """The transpose of one :func:`crf_iterate` step. lam = dL/dx_{t+1}
     [B, N, H], x = x_t, and the running sums dzp [B, N, H], dM [H, H] ->
     (lam_t, dmsg_t, dzp + lam, dM + msg_t^T lam), with dmsg_t = lam M^T,
     lam_t = S~^T dmsg_t and msg_t = S~ x_t. dmsg_t is written into
-    ``dmsg_out`` when given. The kernel scatters lam_t and adds dM with
-    f32 atomics, so those two are not bit-reproducible from run to run."""
+    ``dmsg_out`` when given. ``plan`` (:func:`crf_reverse_plan` of col and
+    M, with col's geometry) is built here when not given. The kernel is
+    deterministic: lam_t adds its terms in ascending slot order from +0.0,
+    bit-equal to the plain version run on the CPU, and dM its partials in a
+    fixed order."""
     if not on_cuda(lam, x, s, col, M, dzp, dM):
         return crf_iterate_bwd_plain(lam, x, s, col, M, dzp, dM, dmsg_out)
     check_no_grad("crf_iterate_bwd", lam, x, s, M, dzp, dM)
@@ -218,23 +279,29 @@ def crf_iterate_bwd(
         dmsg_out = torch.empty_like(lam)
     else:
         _check_state("dmsg_out", dmsg_out, H)
+    if plan is None:
+        plan = crf_reverse_plan(col, M)
+    plan.check(lam, col, M)
     B, N, _ = lam.shape
-    lam_out = torch.zeros_like(lam)
+    lam_out = torch.empty_like(lam)
     dzp_out = torch.empty_like(dzp)
-    dM_out = dM.clone()
-    Mt = M.T.contiguous()
-    with torch.cuda.device(lam.device):
-        CRF_ITERATE_BWD(
-            ptr(lam), ptr(x), ptr(s), ptr(col), ptr(Mt), ptr(dzp),
-            ptr(lam_out), ptr(dmsg_out), ptr(dzp_out), ptr(dM_out),
-            B, N, s.shape[2], H, stream(lam.device),
-        )
+    dM_out = torch.empty_like(dM)
+    dev = lam.device
+    launch_on(dev, CRF_ITERATE_BWD, _pack25(
+        lam.data_ptr(), x.data_ptr(), s.data_ptr(), col.data_ptr(),
+        plan.Wt.data_ptr(), dzp.data_ptr(), dM.data_ptr(), lam_out.data_ptr(),
+        dmsg_out.data_ptr(), dzp_out.data_ptr(), dM_out.data_ptr(),
+        plan.starts.data_ptr(), plan.order, plan.runs, plan.rows.data_ptr(),
+        plan.part.data_ptr(), B, N, s.shape[2], H, plan.tile, plan.width,
+        plan.front, plan.parts, raw_stream(dev)))
     return lam_out, dmsg_out, dzp_out, dM_out
 
 
-def crf_iterate_bwd_plain(lam, x, s, col, M, dzp, dM, dmsg_out=None):
+def crf_iterate_bwd_plain(lam, x, s, col, M, dzp, dM, dmsg_out=None,
+                          plan=None):
     """Plain PyTorch version of :func:`crf_iterate_bwd`: the scan's reverse
-    recurrence written out (not autograd of the loop)."""
+    recurrence written out (not autograd of the loop). ``plan`` is
+    ignored."""
     B, N, H = lam.shape
     K = col.shape[2]
     dmsg = _apply_rows(lam, M.T)
@@ -250,6 +317,39 @@ def crf_iterate_bwd_plain(lam, x, s, col, M, dzp, dM, dmsg_out=None):
     if dmsg_out is not None:
         dmsg = dmsg_out.copy_(dmsg)
     return lam_out.reshape(B, N, H), dmsg, dzp + lam, dM_out
+
+
+def transpose_plain(col: torch.Tensor):
+    """S~^T's structure by row, in slot order: (offsets [B*N + 1] int64,
+    slots int64), the slots (flat indices into [B, N, K]) whose column is
+    row r of batch b lying at slots[offsets[b*N + r]:offsets[b*N + r + 1]],
+    ascending; slots with col < 0 are in no row. The CSR that the kernels'
+    tile-wise structure (:class:`ReversePlan`) encodes."""
+    B, N, K = col.shape
+    keep = (col >= 0).reshape(-1)
+    dest = (torch.arange(B, device=col.device)[:, None, None] * N
+            + col.long()).reshape(-1)[keep]
+    slots = torch.arange(B * N * K, device=col.device)[keep]
+    order = torch.sort(dest, stable=True).indices
+    offsets = torch.zeros(B * N + 1, dtype=torch.int64, device=col.device)
+    offsets[1:] = torch.cumsum(torch.bincount(dest, minlength=B * N), 0)
+    return offsets, slots[order]
+
+
+def transpose_sum_plain(offsets, slots, w, dmsg):
+    """lam_t = S~^T dmsg over :func:`transpose_plain`'s structure, as the
+    kernels sum it: each row's terms w[slot] * dmsg[row of slot], each
+    rounded on its own, added in slot order from +0.0. w [B, N, K], dmsg
+    [B, N, H] -> [B, N, H]."""
+    B, N, K = w.shape
+    H = dmsg.shape[-1]
+    terms = w.reshape(-1)[slots, None] * dmsg.reshape(B * N, H)[slots // K]
+    lengths = offsets[1:] - offsets[:-1]
+    out = torch.zeros((B * N, H), dtype=dmsg.dtype, device=dmsg.device)
+    for j in range(int(lengths.max()) if lengths.numel() else 0):
+        rows = (lengths > j).nonzero()[:, 0]
+        out[rows] = out[rows] + terms[offsets[rows] + j]
+    return out.reshape(B, N, H)
 
 
 # ---------------------------------------------------------------------------
@@ -310,7 +410,8 @@ def crf_core(
 
 class _CRFCore(torch.autograd.Function):
     """Forward: K9 once, K10 ``steps`` times (saving x_0..x_{steps-1} when a
-    gradient is needed). Backward: K11 ``steps`` times, K12 once."""
+    gradient is needed). Backward: K11's plan once, its step ``steps``
+    times, K12 once."""
 
     @staticmethod
     def forward(ctx, z, zp, s, M, idx, steps, tile, pad):
@@ -329,6 +430,7 @@ class _CRFCore(torch.autograd.Function):
             x = crf_iterate(x, zp, s, col, M, out=out)
         if save:
             ctx.save_for_backward(s, M, col, xs)
+            ctx.geometry = (tile, pad)
         return x
 
     @staticmethod
@@ -338,9 +440,11 @@ class _CRFCore(torch.autograd.Function):
         dzp = torch.zeros_like(lam)
         dM = torch.zeros_like(M)
         dmsgs = torch.empty_like(xs)
+        # S~^T's structure, M^T and the workspaces, once for all steps
+        plan = crf_reverse_plan(col, M, *ctx.geometry) if on_cuda(col) else None
         for t in reversed(range(xs.shape[0])):
             lam, _, dzp, dM = crf_iterate_bwd(
-                lam, xs[t], s, col, M, dzp, dM, dmsg_out=dmsgs[t]
+                lam, xs[t], s, col, M, dzp, dM, dmsg_out=dmsgs[t], plan=plan
             )
         ds = crf_neighbor_dot(dmsgs, xs, col)
         return lam, dzp, ds, dM, None, None, None, None

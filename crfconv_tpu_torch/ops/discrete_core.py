@@ -15,13 +15,16 @@ autograd Function over the kernels:
     the message msg_t = S~ q_t;
   * K14 ``discrete_iterate_bwd``: one step of the reverse recurrence,
     dz_t = q_{t+1} (lam_{t+1} - <lam_{t+1}, q_{t+1}>), du += dz_t,
-    dC += msg_t^T dz_t, dmsg_t = -dz_t C^T, lam_t = S~^T dmsg_t;
+    dC += msg_t^T dz_t, dmsg_t = -dz_t C^T, lam_t = S~^T dmsg_t, over
+    S~^T's structure built once per backward call (as K11's,
+    ``crf_core.ReversePlan``);
   * K12 ``crf_core.crf_neighbor_dot``: dw[m, k] = sum_t <dmsg_t[m],
     q_t[col[m, k]]>, once over the saved stacks.
 
 Each wrapper runs its plain PyTorch version on CPU tensors and its kernel
 on CUDA tensors. The plain versions spell out the kernels' sum orders (k,
-then j, then l ascending, every product and sum rounded on its own).
+then j, then l ascending, every product and sum rounded on its own; lam_t's
+terms in ascending slot order, as ``index_add_`` adds them on the CPU).
 """
 
 from __future__ import annotations
@@ -32,11 +35,11 @@ import torch
 
 from crfconv_tpu_torch.cuda_build import DISCRETE_ITERATE, DISCRETE_ITERATE_BWD
 from crfconv_tpu_torch.ops._launch import (
-    check, check_no_grad, on_cuda, ptr, stream,
+    check, check_no_grad, launch_on, on_cuda, ptr, raw_stream, stream,
 )
 from crfconv_tpu_torch.ops.crf_core import (
-    _apply_rows, _check_operator, _message, crf_neighbor_dot, crf_operator,
-    crf_operator_plain,
+    ReversePlan, _apply_rows, _check_operator, _message, _pack25,
+    crf_neighbor_dot, crf_operator, crf_operator_plain,
 )
 from crfconv_tpu_torch.ops.windowed import PAD, TILE
 
@@ -124,19 +127,28 @@ def discrete_iterate_plain(q, u, w, col, C):
 # ---------------------------------------------------------------------------
 
 
+def discrete_reverse_plan(col, C, tile: int = TILE,
+                          pad: int = PAD) -> ReversePlan:
+    """K14's :class:`~crfconv_tpu_torch.ops.crf_core.ReversePlan` for the
+    operator's columns ``col`` and C."""
+    return ReversePlan(DISCRETE_ITERATE_BWD,
+                       "discrete_iterate_bwd_transpose_i32", col, C, tile, pad)
+
+
 def discrete_iterate_bwd(
     lam: torch.Tensor, qn: torch.Tensor, msg: torch.Tensor, w: torch.Tensor,
     col: torch.Tensor, C: torch.Tensor, du: torch.Tensor, dC: torch.Tensor,
-    dmsg_out: torch.Tensor = None,
+    dmsg_out: torch.Tensor = None, plan: ReversePlan = None,
 ):
     """The transpose of one :func:`discrete_iterate` step. lam =
     dL/dq_{t+1} [B, N, L], qn = q_{t+1}, msg = msg_t, and the running sums
     du [B, N, L], dC [L, L] -> (lam_t, dmsg_t, du + dz_t, dC + msg_t^T
     dz_t), with dz_t the softmax VJP, dmsg_t = -dz_t C^T and lam_t = S~^T
     dmsg_t. du and dC carry no sign: the gradients into u and C are minus
-    their sums. dmsg_t is written into ``dmsg_out`` when given. The kernel
-    scatters lam_t and adds dC with f32 atomics, so those two are not
-    bit-reproducible from run to run."""
+    their sums. dmsg_t is written into ``dmsg_out`` when given. ``plan``
+    (:func:`discrete_reverse_plan` of col and C) is built here when not
+    given. The kernel is deterministic: lam_t is bit-equal to the plain
+    version run on the CPU, and dC adds its partials in a fixed order."""
     if not on_cuda(lam, qn, msg, w, col, C, du, dC):
         return discrete_iterate_bwd_plain(lam, qn, msg, w, col, C, du, dC,
                                           dmsg_out)
@@ -151,24 +163,29 @@ def discrete_iterate_bwd(
         dmsg_out = torch.empty_like(lam)
     else:
         _check_rows("dmsg_out", dmsg_out, lam.shape)
+    if plan is None:
+        plan = discrete_reverse_plan(col, C)
+    plan.check(lam, col, C)
     B, N, _ = lam.shape
-    lam_out = torch.zeros_like(lam)
+    lam_out = torch.empty_like(lam)
     du_out = torch.empty_like(du)
-    dC_out = dC.clone()
-    Ct = C.T.contiguous()
-    with torch.cuda.device(lam.device):
-        DISCRETE_ITERATE_BWD(
-            ptr(lam), ptr(qn), ptr(msg), ptr(w), ptr(col), ptr(Ct), ptr(du),
-            ptr(lam_out), ptr(dmsg_out), ptr(du_out), ptr(dC_out), B, N,
-            w.shape[2], L, stream(lam.device),
-        )
+    dC_out = torch.empty_like(dC)
+    dev = lam.device
+    launch_on(dev, DISCRETE_ITERATE_BWD, _pack25(
+        lam.data_ptr(), qn.data_ptr(), msg.data_ptr(), w.data_ptr(),
+        plan.Wt.data_ptr(), du.data_ptr(), dC.data_ptr(),
+        lam_out.data_ptr(), dmsg_out.data_ptr(), du_out.data_ptr(),
+        dC_out.data_ptr(), plan.starts.data_ptr(), plan.order, plan.runs,
+        plan.rows.data_ptr(), plan.part.data_ptr(), B, N, w.shape[2], L,
+        plan.tile, plan.width, plan.front, plan.parts, raw_stream(dev)))
     return lam_out, dmsg_out, du_out, dC_out
 
 
 def discrete_iterate_bwd_plain(lam, qn, msg, w, col, C, du, dC,
-                               dmsg_out=None):
+                               dmsg_out=None, plan=None):
     """Plain PyTorch version of :func:`discrete_iterate_bwd`: the reverse
-    recurrence written out (not autograd of the loop)."""
+    recurrence written out (not autograd of the loop). ``plan`` is
+    ignored."""
     B, N, L = lam.shape
     K = col.shape[2]
     dz = qn * (lam - _row_sum(lam * qn))
@@ -211,8 +228,8 @@ def discrete_core(
 
 class _DiscreteCore(torch.autograd.Function):
     """Forward: K9 once, K13 ``steps`` times (saving q_0..q_{steps-1} and
-    msg_0..msg_{steps-1} when a gradient is taken). Backward: K14 ``steps``
-    times, K12 once."""
+    msg_0..msg_{steps-1} when a gradient is taken). Backward: K14's plan
+    once, its step ``steps`` times, K12 once."""
 
     @staticmethod
     def forward(ctx, p, u, w, C, idx, steps, tile, pad, save):
@@ -234,6 +251,7 @@ class _DiscreteCore(torch.autograd.Function):
                                  msg_out=msgs[t] if save else None)
         if save:
             ctx.save_for_backward(w, C, col, qs, msgs, q)
+            ctx.geometry = (tile, pad)
         return q
 
     @staticmethod
@@ -244,10 +262,14 @@ class _DiscreteCore(torch.autograd.Function):
         du = torch.zeros_like(lam)
         dC = torch.zeros_like(C)
         dmsgs = torch.empty_like(qs)
+        # S~^T's structure, C^T and the workspaces, once for all steps
+        plan = (discrete_reverse_plan(col, C, *ctx.geometry) if on_cuda(col)
+                else None)
         for t in reversed(range(steps)):
             qn = q_last if t == steps - 1 else qs[t + 1]
             lam, _, du, dC = discrete_iterate_bwd(
-                lam, qn, msgs[t], w, col, C, du, dC, dmsg_out=dmsgs[t]
+                lam, qn, msgs[t], w, col, C, du, dC, dmsg_out=dmsgs[t],
+                plan=plan,
             )
         dw = crf_neighbor_dot(dmsgs, qs, col)
         return lam, -du, dw, -dC, None, None, None, None, None

@@ -29,8 +29,9 @@ from crfconv_tpu_torch.ops._launch import (
 )
 from crfconv_tpu_torch.ops.morton import morton_order
 
-# K1's and K8's arguments, packed as int64s (cuda_build.WINDOWED_GATHER)
+# K1's, K2's and K8's arguments, packed as int64s (cuda_build)
 _pack13 = struct.Struct("13q").pack
+_pack14 = struct.Struct("14q").pack
 _pack16 = struct.Struct("16q").pack
 
 TILE = 64      # output rows per window tile
@@ -352,6 +353,8 @@ def window_knn(
     column 0. Bipartite search takes query_pos [B, M, 3], Morton-ordered
     like pos. ``exact`` orders by distance with ties to the lowest index;
     otherwise by the packed key (distances within ~2^-13 relative tie).
+    The keys are distinct, so the kernel's indices are the plain version's
+    bit for bit.
 
     Returns [B, M, k] int32 global source indices, ascending distance.
     """
@@ -367,12 +370,12 @@ def window_knn(
     starts, width, front = _geometry(M, N, tile, pad, pos.device)
     if not 0 < k <= width:
         raise ValueError(f"k={k} outside (0, window width {width}]")
-    out = torch.empty((B, M, k), dtype=torch.int32, device=pos.device)
-    with torch.cuda.device(pos.device):
-        WINDOW_KNN(
-            ptr(q), ptr(pos), ptr(starts), ptr(out), B, M, N, k, tile, width,
-            front, int(query_pos is None), int(exact), stream(pos.device),
-        )
+    dev = pos.device
+    out = torch.empty((B, M, k), dtype=torch.int32, device=dev)
+    launch_on(dev, WINDOW_KNN, _pack14(
+        q.data_ptr(), pos.data_ptr(), starts.data_ptr(), out.data_ptr(), B, M,
+        N, k, tile, width, front, int(query_pos is None), int(exact),
+        raw_stream(dev)))
     return out
 
 

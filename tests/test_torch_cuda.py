@@ -14,7 +14,12 @@ bit-equal at every store and load path (F = 1 to 643, K = 1 to 31, a
 source one float off 16-byte alignment); K8 is bit-equal to its plain
 version on CPU copies (index_add_ on the CPU adds in index order, as K8
 does) and to itself on a rerun, with g read in place as a slice; the
-leaky ReLU's backward kernel gives flax's gradient at 0.
+leaky ReLU's backward kernel gives flax's gradient at 0. K11 and K14 add
+lam_t in slot order over a transpose built once per backward call: lam_t
+is bit-equal to the plain version on CPU copies and every output to itself
+on a rerun (H 3 to 1024); K2 is bit-equal to its plain version at k = 1 to
+33 and k = the window's width, exact and packed, same-scale and bipartite,
+on 512- and 128-wide windows with duplicated points.
 
 Needs an NVIDIA GPU and nvcc; skipped otherwise. On the card run
 
@@ -105,6 +110,30 @@ def test_window_knn_matches_plain(dev, n, k, bipartite, exact):
         assert torch.equal(got[:, :, 0], torch.arange(n, device=dev).expand(2, n).int())
     # same arithmetic, no FMA contraction: the same indices
     assert torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("exact", [True, False])
+@pytest.mark.parametrize("bipartite", [False, True])
+@pytest.mark.parametrize("k", [1, 3, 16, 32, 33, "width"])
+@pytest.mark.parametrize("tile,pad", [(64, 128), (16, 16)])
+def test_window_knn_bit_equal_every_k(dev, k, bipartite, exact, tile, pad):
+    """One-pass selection (k <= 32, 32-bit packed keys where the window is
+    at most 2048 wide) and the rounds (k > 32), on the main path's windows
+    (512 wide) and on 128-wide ones, with duplicated points (exact ties):
+    the keys are distinct, so the indices are the plain version's."""
+    rng = np.random.default_rng(2)
+    pos = _sorted_cloud(rng, 2, 700, dev)
+    pos[:, 1::2] = pos[:, 0::2]                   # every point twice
+    src, query = (pos[:, ::4].contiguous(), pos) if bipartite else (pos, None)
+    m = pos.shape[1]
+    width = windowed.window_starts(m, src.shape[1], tile, pad)[1]
+    kk = width if k == "width" else k
+    got = windowed.window_knn(src, kk, query, tile, pad, exact)
+    ref = windowed.window_knn_plain(src, kk, query, tile, pad, exact)
+    assert torch.equal(got, ref)
+    if not bipartite:   # the self pin: column 0 is the row itself
+        assert torch.equal(got[:, :, 0],
+                           torch.arange(m, device=dev).expand(2, m).int())
 
 
 @pytest.mark.parametrize("h,k", [(4, 16), (8, 16), (13, 9), (32, 16)])
@@ -382,19 +411,11 @@ def test_crf_iterate_bwd_and_neighbor_dot_match_plain(dev, b, n, h, k, spread):
     ref = crf_core.crf_iterate_bwd_plain(lam, x, s, col, m, dzp, dM)
     assert torch.equal(got[1], ref[1])        # dmsg: the plain version's order
     assert torch.equal(got[2], ref[2])        # dzp + lam
-    # lam_t: f32 atomics in another order than index_add_; the rounding
-    # scales with the magnitudes summed into the row, and both flush
-    # subnormal inputs and results of each add to zero (atom.add.f32)
-    mass = crf_core.crf_iterate_bwd_plain(lam.abs(), x, s, col, m.abs(),
-                                          dzp, dM)[0]
-    terms = crf_core.crf_iterate_bwd_plain(
-        torch.ones(b, n, 1, device=dev), torch.zeros(b, n, 1, device=dev),
-        torch.ones_like(s), col, torch.ones(1, 1, device=dev),
-        torch.zeros(b, n, 1, device=dev), torch.zeros(1, 1, device=dev))[0]
-    tiny = torch.finfo(torch.float32).tiny
-    assert bool(((got[0] - ref[0]).abs() <= 1e-5 * ref[0].abs() + 1e-6 * mass
-                 + 2 * tiny * terms).all())
-    # dM: a sum over every row, in blocks, then atomics into the running sum
+    # lam_t: its terms in ascending slot order, as index_add_ adds them on
+    # the CPU (the card's index_add_ adds with atomics), subnormals kept
+    cpu = [t.cpu() for t in (lam, x, s, col, m, dzp, dM)]
+    assert torch.equal(got[0].cpu(), crf_core.crf_iterate_bwd_plain(*cpu)[0])
+    # dM: a sum over every row, in chunks, then the chunks in order
     scale = float((dM.abs() + crf_core._message(x.abs(), s, col).reshape(-1, h).T
                    @ lam.abs().reshape(-1, h)).max())
     assert float((got[3] - ref[3]).abs().max()) <= 1e-5 * scale + 1e-6
@@ -420,7 +441,11 @@ def test_crf_core_backward_matches_plain_autograd(dev, b, n, h, k, spread,
     ts = [t.clone().requires_grad_() for t in (z, zp, s, m)]
     w = torch.randn(b, h, n, device=dev)
     out = crf_core.crf_core(ts[0], ts[1], ts[2], idx, ts[3], steps)
-    got = torch.autograd.grad((out.transpose(1, 2) * w).sum(), ts)
+    got = torch.autograd.grad((out.transpose(1, 2) * w).sum(), ts,
+                              retain_graph=True)
+    again = torch.autograd.grad((out.transpose(1, 2) * w).sum(), ts)
+    for a, r in zip(got, again):   # no atomics: bit-identical
+        assert torch.equal(a, r)
     out_ref = crf_core.crf_core_plain(ts[0], ts[1], ts[2], idx, ts[3], steps)
     assert torch.equal(out, out_ref)          # the forward is bit-equal
     ref = torch.autograd.grad((out_ref.transpose(1, 2) * w).sum(), ts)
@@ -572,25 +597,70 @@ def test_discrete_iterate_bwd_matches_plain(dev, b, n, l, k, spread):
                                                    dC)
     assert torch.equal(got[1], ref[1])        # dmsg: the plain version's order
     assert torch.equal(got[2], ref[2])        # du + dz
-    # lam_t: f32 atomics in another order than index_add_, each add
-    # flushing subnormal inputs and results to zero (atom.add.f32)
+    # lam_t: its terms in ascending slot order, as index_add_ adds them on
+    # the CPU, subnormals kept
+    cpu = [t.cpu() for t in (lam, q, msg, w, col, c, du, dC)]
+    assert torch.equal(got[0].cpu(),
+                       discrete_core.discrete_iterate_bwd_plain(*cpu)[0])
+    # dC: a sum over every row, in chunks, then the chunks in order
     dz = q * (lam - (lam * q).sum(-1, keepdim=True))
-    dmsg_mass = ref[1].abs()
-    keep = col >= 0
-    rows = (torch.arange(b, device=dev)[:, None, None] * n
-            + torch.where(keep, col, 0).long()).reshape(-1)
-    mass = torch.zeros(b * n, l, device=dev).index_add_(
-        0, rows, (torch.where(keep, w, 0)[..., None]
-                  * dmsg_mass[:, :, None, :]).reshape(-1, l)).reshape(b, n, l)
-    terms = torch.zeros(b * n, device=dev).index_add_(
-        0, rows, keep.float().reshape(-1)).reshape(b, n, 1)
-    tiny = torch.finfo(torch.float32).tiny
-    assert bool(((got[0] - ref[0]).abs() <= 1e-5 * ref[0].abs() + 1e-6 * mass
-                 + 2 * tiny * terms).all())
-    # dC: a sum over every row, in blocks, then atomics into the running sum
     scale = float((dC.abs() + msg.abs().reshape(-1, l).T
                    @ dz.abs().reshape(-1, l)).max())
     assert float((got[3] - ref[3]).abs().max()) <= 1e-5 * scale + 1e-6
+
+
+@pytest.mark.parametrize("h", [3, 32, 256, 1024])
+def test_crf_iterate_bwd_deterministic(dev, h):
+    """K11 at H 3 to 1024: a rerun is bit-identical (no atomics), lam_t is
+    bit-equal to the plain version on CPU copies, dM within its bound, and
+    a step over a plan built once equals one that builds its own."""
+    rng = np.random.default_rng(14)
+    b, n, k = 2, 300, 15
+    x, lam, s, idx, m = _crf_inputs(rng, b, n, h, k, 90, dev)
+    col = crf_core.crf_operator(idx)
+    dzp = torch.randn(b, n, h, device=dev)
+    dM = torch.randn(h, h, device=dev)
+    plan = crf_core.crf_reverse_plan(col, m)
+    got = crf_core.crf_iterate_bwd(lam, x, s, col, m, dzp, dM, plan=plan)
+    again = crf_core.crf_iterate_bwd(lam, x, s, col, m, dzp, dM, plan=plan)
+    own = crf_core.crf_iterate_bwd(lam, x, s, col, m, dzp, dM)
+    for a, r, o in zip(got, again, own):
+        assert torch.equal(a, r) and torch.equal(a, o)
+    cpu = crf_core.crf_iterate_bwd_plain(
+        *[t.cpu() for t in (lam, x, s, col, m, dzp, dM)])
+    for a, r in zip(got[:3], cpu[:3]):
+        assert torch.equal(a.cpu(), r)
+    mass = (dM.abs() + crf_core._message(x.abs(), s, col).reshape(-1, h).T
+            @ lam.abs().reshape(-1, h)).cpu()
+    assert bool(((got[3].cpu() - cpu[3]).abs() <= 1e-4 * mass
+                 + 1e-6 * float(mass.max())).all())
+
+
+def test_discrete_iterate_bwd_deterministic(dev):
+    """K14 at ScanNet's 20 classes and K = 31: a rerun is bit-identical,
+    lam_t bit-equal to the plain version on CPU copies, dC within its
+    bound."""
+    rng = np.random.default_rng(34)
+    b, n, l, k = 2, 1000, 20, 31
+    q, u, w, idx, c = _discrete_inputs(rng, b, n, l, k, 90, dev)
+    col = crf_core.crf_operator(idx)
+    lam = torch.randn(b, n, l, device=dev)
+    msg = crf_core._message(q, w, col)
+    du = torch.randn(b, n, l, device=dev)
+    dC = torch.randn(l, l, device=dev)
+    plan = discrete_core.discrete_reverse_plan(col, c)
+    args = (lam, q, msg, w, col, c, du, dC)
+    got = discrete_core.discrete_iterate_bwd(*args, plan=plan)
+    again = discrete_core.discrete_iterate_bwd(*args, plan=plan)
+    for a, r in zip(got, again):
+        assert torch.equal(a, r)
+    cpu = discrete_core.discrete_iterate_bwd_plain(*[t.cpu() for t in args])
+    for a, r in zip(got[:3], cpu[:3]):
+        assert torch.equal(a.cpu(), r)
+    dz = (q * (lam - (lam * q).sum(-1, keepdim=True))).abs()
+    mass = (dC.abs() + msg.abs().reshape(-1, l).T @ dz.reshape(-1, l)).cpu()
+    assert bool(((got[3].cpu() - cpu[3]).abs() <= 1e-4 * mass
+                 + 1e-6 * float(mass.max())).all())
 
 
 @pytest.mark.parametrize("b,n,l,k,spread,steps", [
@@ -606,7 +676,11 @@ def test_discrete_core_backward_matches_plain_autograd(dev, b, n, l, k,
     ts = [t.clone().requires_grad_() for t in (p, u, w, c)]
     g = torch.randn(b, l, n, device=dev)
     out = discrete_core.discrete_core(ts[0], ts[1], ts[2], idx, ts[3], steps)
-    got = torch.autograd.grad((out.transpose(1, 2) * g).sum(), ts)
+    got = torch.autograd.grad((out.transpose(1, 2) * g).sum(), ts,
+                              retain_graph=True)
+    again = torch.autograd.grad((out.transpose(1, 2) * g).sum(), ts)
+    for a, r in zip(got, again):   # no atomics: bit-identical
+        assert torch.equal(a, r)
     out_ref = discrete_core.discrete_core_plain(ts[0], ts[1], ts[2], idx,
                                                 ts[3], steps)
     assert float((out - out_ref).abs().max()) <= 1e-5
