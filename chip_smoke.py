@@ -42,21 +42,27 @@
     recording every kernel call of each (K1, K2, K9, K10 in the request;
     K1, K2, K8, K9-K12 and the leaky ReLU's backward in the step), each
     held against its plain version and timed as in 3 (K2 bit-equal on
-    every call of every path); each K11 call (and K14's in 14) is run
-    twice (bit-identical) and every tenth, the first reverse step of each
-    core, held bit-equal to the plain version on CPU copies; the reverse
-    steps' plans (S~^T's structure, built once a backward) are timed.
+    every call of every path; K10, one call a CRF core running all its
+    steps, bit-equal with the stack it saves); each K11 call (and K14's
+    in 14) is run twice (bit-identical) and every tenth, the first reverse
+    step of each core, held bit-equal to the plain version on CPU copies;
+    each K12 call (and the discrete step's in 14) is run twice
+    (bit-identical); the reverse steps' plans (S~^T's structure, built
+    once a backward) are timed. K10's and K12's calls are also timed per
+    layer width beside their bounds, and the request's K10 calls against
+    the same steps launched one at a time.
 11. ScanNet serving main path: SCANNET_REQUESTS requests through
     Predictor with seeded weights; outputs and exact launch counts; one
     forward with the kernels against one through the plain versions on the
-    same pyramid; a profiled request.
+    same pyramid (bit-equal); a profiled request.
 12. ScanNet train main path: TRAIN_STEPS steps through make_train_step with
     ScanNet's settings, checked as in 7 (every CRF's c included); the step,
     its phases and a profile.
 13. A ScanNet train step with the kernels against one through the plain
     versions differentiated by autograd, from one state and pyramid, as in
-    8, and a second kernel step, which prints whether its gradients are
-    bit-identical (K8, K11 and K14 add without atomics).
+    8, and a second kernel step whose gradients must be bit-identical
+    (K8, K11, K12 and K14 add without atomics; so for the flagship in 8
+    and the discrete net in 14).
 14. ScanNet-discrete (BaselineDiscreteCRFSegNet(20 classes, steps=10), B16 x
     8192, label_offset 1): a warm-up request (pyramid, forward, the last
     head log q, as the JAX package serves a two-head model) and a warm-up
@@ -161,7 +167,7 @@ SCANNET_REQUESTS = 3
 # the encoder's 10 gathers of [pos, h], 2 per k-NN interpolation (features
 # and positions) and 2 per GuideCRFConv (the radius mask's positions and
 # the similarity's guidance), 4 decoders each; each decoder's fused core
-# builds its operator once (K9) and iterates 10 times (K10)
+# builds its operator once (K9) and runs its 10 steps in one launch (K10)
 SCANNET_PER_REQUEST = {
     "windowed_gather": 10 + 4 * 2 + 4 * 2,
     "window_knn": 10,
@@ -170,7 +176,7 @@ SCANNET_PER_REQUEST = {
     "windowed_weighted_reduce": 0,
     "windowed_gather_bwd": 0,
     "crf_operator": 4,
-    "crf_iterate": 4 * 10,
+    "crf_iterate": 4,
     "crf_iterate_bwd": 0,
     "crf_neighbor_dot": 0,
     "select_min_k": 0,
@@ -413,16 +419,19 @@ def record_calls(sites, run, snapshot=()):
     the caller overwrites later (the CRF cores' ping-pong states), the
     tensors are copied as they were and the output buffers dropped, so a
     replay computes the recorded call into fresh outputs; a K13 call that
-    saved its message replays with ``with_msg``."""
+    saved its message replays with ``with_msg``, a K10 call that saved its
+    stack with ``with_xs``."""
     calls = {name: [] for name in sites}
 
     def recorder(name, fn):
         def rec(*args, **kwargs):
             if name in snapshot:
                 kw = {k: v for k, v in kwargs.items()
-                      if k not in ("out", "dmsg_out", "msg_out")}
+                      if k not in ("out", "dmsg_out", "msg_out", "xs")}
                 if kwargs.get("msg_out") is not None:
                     kw["with_msg"] = True   # K13 saving the message
+                if kwargs.get("xs") is not None:
+                    kw["with_xs"] = True    # K10 saving the stack
                 calls[name].append((
                     tuple(a.clone() if isinstance(a, torch.Tensor) else a
                           for a in args), kw,
@@ -476,10 +485,11 @@ def bound_of(name, args, out):
         x, s_ = args[0], args[2]
         b, n, h = x.shape
         k = s_.shape[2]
-        # the message (2 K H a row) and the apply (2 H^2); the backward
-        # adds the scatter (2 K H), dM (2 H^2) and dzp (H)
+        # the message (2 K H a row) and the apply (2 H^2) a step (K10 runs
+        # args[5] steps); the backward adds the scatter (2 K H), dM (2 H^2)
+        # and dzp (H)
         per_row = 2 * k * h + 2 * h * h
-        ops = b * n * (per_row if name == "crf_iterate"
+        ops = b * n * (per_row * args[5] if name == "crf_iterate"
                        else 2 * per_row + h)
     elif name == "crf_neighbor_dot":
         t, b, n, h = args[1].shape
@@ -574,9 +584,17 @@ def compare(name, args, got, ref):
                           zip(OF_BOUND.get(name, frac), frac)]
         expect(frac[0] <= 1.0, "windowed_gather_bwd: outside the rounding "
                f"bound of the exact sum ({frac[0]:.7g} of it)")
-    if name in ("crf_operator", "crf_iterate", "leaky_relu_bwd"):
-        # one clamp; one sum order (k, then h ascending), no fused
-        # multiply-add, as the plain version adds
+    if name == "crf_iterate":
+        # every step in one sum order (k, then h ascending), no fused
+        # multiply-add, as the plain loop adds: x_steps and the saved stack
+        # bit-equal
+        expect(torch.equal(got[0], ref[0]), f"{name}: not bit-equal")
+        if ref[1] is not None:
+            expect(got[1] is not None and torch.equal(got[1], ref[1]),
+                   f"{name}: the saved stack not bit-equal")
+        return float((got[0] - ref[0]).abs().max())
+    if name in ("crf_operator", "leaky_relu_bwd"):
+        # one clamp; one comparison
         expect(torch.equal(got, ref), f"{name}: not bit-equal")
         return float((got - ref).abs().max()) if got.numel() else 0.0
     if name == "crf_iterate_bwd":
@@ -634,11 +652,16 @@ def compare(name, args, got, ref):
                f"{name}: dC outside 1e-4 of its mass")
         return max(float((a - r).abs().max()) for a, r in zip(got, ref))
     if name == "crf_neighbor_dot":
-        from crfconv_tpu_torch.ops.crf_core import crf_neighbor_dot_plain
+        from crfconv_tpu_torch.ops.crf_core import (
+            crf_neighbor_dot, crf_neighbor_dot_plain,
+        )
         mass = crf_neighbor_dot_plain(args[0].abs(), args[1].abs(), args[2])
         expect(bool(((got - ref).abs() <= 1e-5 * mass
                      + 1e-6 * float(mass.max())).all()),
                "crf_neighbor_dot: outside 1e-5 of its mass")
+        # one fixed order a sum, no atomics: a rerun is bit-identical
+        expect(torch.equal(got, crf_neighbor_dot(*args)),
+               "crf_neighbor_dot: a rerun is not bit-identical")
         return float((got - ref).abs().max())
     # K3, K4: float32 sums in another order than the plain matmuls and
     # sums; K8 also within the bound above
@@ -836,6 +859,76 @@ def host_split_us(kernel, calls) -> dict:
     return split
 
 
+def per_width(name, kernel, calls) -> list:
+    """K10's or K12's calls of one path grouped by state width (one group a
+    CRF layer): per group the calls, device and event ms, host us a call,
+    the bound and its ratio; for K10 also the sum of its steps' one-step
+    bounds (each step's x, zp, s, col and out moved once). The device time
+    is the profiler's over five runs of the group, over five: it misses a
+    single short call."""
+    at = 0 if name == "crf_iterate" else 1   # the state: z, or the xs stack
+    groups = {}
+    for a, k in calls:
+        groups.setdefault(a[at].shape[-1], []).append((a, k))
+    rows = []
+    for h, group in sorted(groups.items()):
+        def run():
+            for a, k in group:
+                kernel(*a, **k)
+        bound, step_bound = 0.0, 0.0
+        for a, k in group:
+            out = kernel(*a, **k)
+            bound += bound_of(name, a, out)[0]
+            if name == "crf_iterate":
+                one = bound_of(name, a[:5] + (1,), out[0])[0]
+                step_bound += one * a[5]
+        dev_ms = device_ms(lambda: [run() for _ in range(5)])[0] / 5
+        row = {"h": h, "rows": int(np.prod(group[0][0][at].shape[-3:-1])),
+               "calls": len(group), "device_ms": dev_ms, "ms": median_ms(run),
+               "host_us": host_us(run, len(group)), "bound_ms": bound,
+               "of_bound": dev_ms / bound if bound and dev_ms else None}
+        if name == "crf_iterate":
+            row["steps"] = sum(a[5] for a, _ in group)
+            row["step_bound_ms"] = step_bound
+        rows.append(row)
+    return rows
+
+
+def steps_vs_launches(calls) -> dict:
+    """K10's recorded calls run as recorded (all of a call's steps in one
+    launch, grid barriers between steps) and as one launch a step (the
+    same kernel at steps = 1, ping-ponging two buffers): device and event
+    ms of each, and the launches."""
+    from crfconv_tpu_torch.ops import crf_core
+
+    bufs = [(torch.empty_like(a[0]), torch.empty_like(a[0])) for a, _ in calls]
+
+    def fused():
+        for a, _ in calls:
+            crf_core.crf_iterate_steps(*a[:6])
+
+    def stepwise():
+        for (a, _), ping in zip(calls, bufs):
+            x = a[0]
+            for t in range(a[5]):
+                x = crf_core.crf_iterate(x, *a[1:5], out=ping[t % 2])
+
+    # one order of the sums: the two are bit-equal
+    for (a, _), ping in zip(calls, bufs):
+        x = a[0]
+        for t in range(a[5]):
+            x = crf_core.crf_iterate(x, *a[1:5], out=ping[t % 2])
+        expect(torch.equal(x, crf_core.crf_iterate_steps(*a[:6])),
+               "crf_iterate: one launch a step differs from the fused call")
+    r = {"launches_fused": len(calls),
+         "launches_stepwise": sum(a[5] for a, _ in calls)}
+    for label, fn in (("fused", fused), ("stepwise", stepwise),
+                      ("stepwise_again", stepwise), ("fused_again", fused)):
+        r[f"{label}_device_ms"] = device_ms(fn)[0]
+        r[f"{label}_ms"] = median_ms(fn)
+    return r
+
+
 def kernel_phase(name, kernel, plain, calls, path):
     err, bound_ms, by_ops = 0.0, 0.0, {"bytes": 0.0, "operations": 0.0}
     ref_max = 0.0
@@ -876,6 +969,10 @@ def kernel_phase(name, kernel, plain, calls, path):
     plans = (plan_ms(name, calls) if name in ("crf_iterate_bwd",
                                               "discrete_iterate_bwd")
              else None)
+    widths = (per_width(name, kernel, calls)
+              if name in ("crf_iterate", "crf_neighbor_dot") else None)
+    barrier = (steps_vs_launches(calls)
+               if name == "crf_iterate" and path == "scannet serve" else None)
     return {
         "name": name,
         "route": "cuda",
@@ -897,6 +994,8 @@ def kernel_phase(name, kernel, plain, calls, path):
         "of_bound": of_bound,
         "host_split_us": split,
         "plan": plans,
+        "widths": widths,
+        "steps_vs_launches": barrier,
     }
 
 
@@ -1116,6 +1215,21 @@ def print_phase(r) -> None:
              f", host us a call {r['host_split_us']}")
           + ("" if r["plan"] is None else
              f", plans built {r['plan']}"), flush=True)
+    for w in r.get("widths") or ():
+        print(f"#   {r['name']} H {w['h']} ({w['rows']} rows, {w['calls']} "
+              f"calls): device "
+              + (f"{w['device_ms'] * 1e3:.1f} us" if w["device_ms"] else
+                 "not measured")
+              + f", events "
+              f"{w['ms'] * 1e3:.1f} us, host {w['host_us']:.1f} us a call, "
+              f"bound {w['bound_ms'] * 1e3:.2f} us ("
+              + ("n/a" if w["of_bound"] is None else f"{w['of_bound']:.1f}x")
+              + ")" + ("" if "step_bound_ms" not in w else
+                       f", {w['steps']} steps' one-step bounds "
+                       f"{w['step_bound_ms'] * 1e3:.2f} us"), flush=True)
+    if r.get("steps_vs_launches"):
+        print(f"#   crf_iterate steps in one launch vs one launch a step: "
+              f"{r['steps_vs_launches']}", flush=True)
 
 
 def leaky_backward_ab(step, rows) -> dict:
@@ -1290,6 +1404,8 @@ def train_phases(dev, rng, out_dir: str, results: dict) -> dict:
           f"gradients bit-equal {rerun_bit_equal}, worst {worst_rerun} at "
           f"{d_rerun:.3g}; step on a built pyramid {kernel_step_ms:.3f} ms, "
           f"plain versions {plain_step_ms:.3f} ms", flush=True)
+    # K8 adds without atomics: two steps are bit-identical
+    expect(rerun_bit_equal, "kernel step rerun: gradients not bit-identical")
 
     # 9. eval step, checkpoint round trip
     eval_step = make_eval_step(TRAIN_MODE)
@@ -1467,6 +1583,9 @@ def small_kernel_vs_plain_step(label, make_state, raw, dev, cfg, plain_pairs,
                                  sk2.model.parameters())
         if not torch.equal(p.grad, q.grad)]
     rerun_bit_equal = not rerun_differs
+    # K8, K11, K12 and K14 add without atomics: two steps are bit-identical
+    expect(rerun_bit_equal, f"{label} kernel step rerun: gradients of "
+           f"{rerun_differs[:6]} not bit-identical")
     a_sd, b_sd = snapshot(sk.model), snapshot(sp.model)
     pnames = {nm for nm, _ in sk.model.named_parameters()}
     off = [nm for nm in b_sd if not torch.allclose(
@@ -1536,17 +1655,34 @@ def scannet_cloud(cfg, rng, device, labels: bool = False):
     return RawBatch(pos=pos, x=feats, y=y)
 
 
-def crf_call_sites():
-    """As :func:`call_sites`, for the CRF core's kernels, reached from its
-    autograd Function."""
+def _k10(z, zp, s, col, M, steps, with_xs=False):
+    """K10 as a phase replays it: (x_steps, the saved stack or None)."""
     from crfconv_tpu_torch.ops import crf_core
 
-    return {
+    xs = z.new_empty((steps,) + tuple(z.shape)) if with_xs else None
+    return crf_core.crf_iterate_steps(z, zp, s, col, M, steps, xs=xs), xs
+
+
+def _k10_plain(z, zp, s, col, M, steps, with_xs=False):
+    from crfconv_tpu_torch.ops import crf_core
+
+    xs = z.new_empty((steps,) + tuple(z.shape)) if with_xs else None
+    return crf_core.crf_iterate_steps_plain(z, zp, s, col, M, steps, xs), xs
+
+
+def crf_call_sites():
+    """As :func:`call_sites`, for the CRF core's kernels, reached from its
+    autograd Function (K10 through ``crf_iterate_steps``, one call a
+    core)."""
+    from crfconv_tpu_torch.ops import crf_core
+
+    sites = {
         name: (crf_core, name, getattr(crf_core, name),
                getattr(crf_core, name + "_plain"))
-        for name in ("crf_operator", "crf_iterate", "crf_iterate_bwd",
-                     "crf_neighbor_dot")
+        for name in ("crf_operator", "crf_iterate_bwd", "crf_neighbor_dot")
     }
+    sites["crf_iterate"] = (crf_core, "crf_iterate_steps", _k10, _k10_plain)
+    return sites
 
 
 def scannet_plain_pairs():
@@ -1664,10 +1800,10 @@ def scannet_phases(dev, rng, out_dir: str, results: dict) -> dict:
     scale = float(ref.abs().max())
     fwd_bit_equal = bool(torch.equal(got, ref))
     agree = float((got.argmax(-1) == ref.argmax(-1)).float().mean())
-    # K1, K9 and K10 are bit-equal to their plain versions and the rest of
-    # the forward is the same torch code: expected bit-equal; the limit
-    # leaves room for last-bit differences only
-    expect(d_logp <= 1e-5 * max(1.0, scale),
+    # K1, K9 and K10 (all steps of a core fused into one launch) are
+    # bit-equal to their plain versions and the rest of the forward is the
+    # same torch code: bit-equal
+    expect(fwd_bit_equal,
            f"scannet kernel vs plain forward: max |dlogp| {d_logp}")
     expect(agree >= 0.999, f"scannet argmax agreement {agree}")
     print(f"# scannet forward kernels vs plain: max |dlogp| {d_logp:.3g} "
@@ -2624,7 +2760,8 @@ def main() -> int:
         phases = results[name]
         r = {k: v for k, v in phases[0].items()
              if k not in ("path", "calls", "max_abs_ref", "of_bound",
-                          "host_split_us", "plan", "device_kernels")}
+                          "host_split_us", "plan", "device_kernels",
+                          "widths", "steps_vs_launches")}
         r["max_abs_err"] = max(p["max_abs_err"] for p in phases)
         r["launches"] = sum(LAUNCHES[name].values())
         r["launches_by_path"] = LAUNCHES[name]
@@ -2637,7 +2774,8 @@ def main() -> int:
                                "ms", "device_ms", "host_us", "plain_ms",
                                "bound_ms", "bound_by", "library_ms",
                                "library_device_ms", "of_bound",
-                               "host_split_us", "plan", "device_kernels")}
+                               "host_split_us", "plan", "device_kernels",
+                               "widths", "steps_vs_launches")}
             for p in phases
         ]
         kernels.append(r)

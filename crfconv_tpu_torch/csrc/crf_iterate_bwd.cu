@@ -20,7 +20,7 @@
 // (crf_iterate_bwd_transpose_i32: K8's tile_inverse over col,
 // crf_transpose.cuh), so lam_out and dM_out are identical from run to run:
 //
-//  1. rows: a block owns R rows as in K10 (crf_rows.cuh); it loads lam,
+//  1. rows: a block owns R rows (crf_rows.cuh); it loads lam,
 //     writes dzp_out, writes msg into a workspace, and applies M^T with RT
 //     rows per thread, j ascending, each product and sum rounded on its
 //     own: dmsg is bit-equal to the plain version;

@@ -1,5 +1,5 @@
-// Row blocking and the message S~ x shared by the CRF iterate kernels (K10
-// forward, K11 backward).
+// Row blocking and the message S~ x of the CRF's reverse step (K11's rows
+// kernel).
 //
 // A block of THREADS threads owns R = groups * RT consecutive rows of the
 // flattened [B*N, H] state. For the H x H products each thread owns one

@@ -32,7 +32,7 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC",
 )
 HEADERS = ("window.cuh", "crf_rows.cuh", "point_conv.cuh", "tile_inverse.cuh",
-           "crf_transpose.cuh", "warp_select.cuh")
+           "crf_transpose.cuh", "warp_select.cuh", "cp_async.cuh")
 
 NOTHING_LAUNCHED = -1   # an entry point's code for an empty problem
 _P = ctypes.c_void_p
@@ -119,7 +119,7 @@ class Kernel:
         self._count(self._extra[symbol](packed), symbol)
 
 
-# K1, K2, K8, K11 and K14 take their arguments packed as int64s in one
+# K1, K2, K8, K10-K12 and K14 take their arguments packed as int64s in one
 # bytes object (``struct.pack``): per call that costs the host a few
 # microseconds less than ctypes' conversion of a dozen arguments.
 WINDOWED_GATHER = Kernel(
@@ -151,8 +151,7 @@ CRF_OPERATOR = Kernel(
     [_P] * 3 + [_I] * 6 + [_P],
 )
 CRF_ITERATE = Kernel(
-    "crf_iterate", "crf_iterate.cu", "crf_iterate_f32",
-    [_P] * 6 + [_I] * 4 + [_P],
+    "crf_iterate", "crf_iterate.cu", "crf_iterate_f32", [ctypes.c_char_p],
 )
 CRF_ITERATE_BWD = Kernel(
     "crf_iterate_bwd", "crf_iterate_bwd.cu", "crf_iterate_bwd_f32",
@@ -160,7 +159,7 @@ CRF_ITERATE_BWD = Kernel(
 )
 CRF_NEIGHBOR_DOT = Kernel(
     "crf_neighbor_dot", "crf_neighbor_dot.cu", "crf_neighbor_dot_f32",
-    [_P] * 4 + [_I] * 5 + [_P],
+    [ctypes.c_char_p],
 )
 POINT_CONV_FUSED_STRIDED = Kernel(
     "point_conv_fused_strided", "point_conv_strided.cu",

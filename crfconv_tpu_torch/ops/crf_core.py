@@ -14,12 +14,15 @@ c flows by autograd; :func:`crf_core` is an autograd Function over the
 kernels:
 
   * K9  ``crf_operator``: the operator's columns, clamped once per call;
-  * K10 ``crf_iterate``: one Jacobi step, x_t -> x_{t+1};
+  * K10 ``crf_iterate_steps``: every Jacobi step of a call in one launch,
+    x_0 -> x_steps, filling the stack x_0..x_{steps-1} when the backward
+    needs it (``crf_iterate``: one step through the same kernel);
   * K11 ``crf_iterate_bwd``: one step of the reverse recurrence,
     dmsg_t = lam_{t+1} M^T, lam_t = S~^T dmsg_t, dzp += lam_{t+1},
     dM += msg_t^T lam_{t+1}, over S~^T's structure built once per backward
     call (:class:`ReversePlan`, K8's tile_inverse over the columns);
-  * K12 ``crf_neighbor_dot``: ds[m, k] = sum_t <dmsg_t[m], x_t[col[m, k]]>.
+  * K12 ``crf_neighbor_dot``: ds[m, k] = sum_t <dmsg_t[m], x_t[col[m, k]]>,
+    over the window geometry the operator was clamped with.
 
 Each wrapper runs its plain PyTorch version on CPU tensors and its kernel
 on CUDA tensors. The plain versions of K10 and K11 spell out the kernels'
@@ -31,6 +34,7 @@ lam_t to the plain version run on the CPU).
 
 from __future__ import annotations
 
+import functools
 import struct
 
 import torch
@@ -42,12 +46,14 @@ from crfconv_tpu_torch.ops._launch import (
     check, check_no_grad, launch_on, on_cuda, ptr, raw_stream, stream,
 )
 from crfconv_tpu_torch.ops.windowed import (
-    PAD, TILE, _clamped_rows, _geometry,
+    PAD, TILE, _clamped_rows, _geometry, window_starts,
 )
 
 MAX_H = 1024   # widest state the iterate kernels take
-# K11's and K14's arguments, packed as int64s (cuda_build)
+# the kernels' arguments, packed as int64s (cuda_build)
 _pack11 = struct.Struct("11q").pack
+_pack15 = struct.Struct("15q").pack
+_pack16 = struct.Struct("16q").pack
 _pack25 = struct.Struct("25q").pack
 # blocks of a reverse step's [H, H] partial sums aimed at (four an H100 SM)
 _PART_BLOCKS = 528
@@ -135,7 +141,7 @@ def _apply_rows(a: torch.Tensor, W: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# K10: one forward step
+# K10: the forward steps
 # ---------------------------------------------------------------------------
 
 
@@ -159,33 +165,48 @@ def _check_operator(x, s, col, M):
         raise ValueError(f"width {H} outside (0, {MAX_H}]")
 
 
+def _aligned(*ts: torch.Tensor) -> bool:
+    """Every tensor starts on a 16-byte boundary (the kernels' float4
+    path)."""
+    return all(t.data_ptr() % 16 == 0 for t in ts)
+
+
+def _iterate_launch(z, zp, s, col, M, steps, out, xs, ping) -> None:
+    """K10's launch: ``steps`` steps from z into out, through xs[1:] or the
+    ping-pong buffers ``ping`` [2 or 1, B, N, H] (None where steps is 1)."""
+    B, N, H = z.shape
+    states = [z, zp, out] + [t for t in (xs, ping) if t is not None]
+    ping_ptr = (0, 0) if ping is None else (
+        ping[0].data_ptr(), ping[ping.shape[0] - 1].data_ptr())
+    dev = z.device
+    launch_on(dev, CRF_ITERATE, _pack16(
+        z.data_ptr(), zp.data_ptr(), s.data_ptr(), col.data_ptr(),
+        M.data_ptr(), 0 if xs is None else xs.data_ptr(), *ping_ptr,
+        out.data_ptr(), B, N, s.shape[2], H, steps, raw_stream(dev),
+        int(H % 4 == 0 and _aligned(*states))))
+
+
 def crf_iterate(
     x: torch.Tensor, zp: torch.Tensor, s: torch.Tensor, col: torch.Tensor,
     M: torch.Tensor, out: torch.Tensor = None,
 ) -> torch.Tensor:
     """One Jacobi step x_{t+1} = zp + (S~ x_t) M: x, zp [B, N, H] f32,
     s [B, N, K] f32, col [B, N, K] int32 (:func:`crf_operator`), M [H, H]
-    -> [B, N, H], written into ``out`` when given (never x itself). Not
-    differentiable; the autograd front is :func:`crf_core`."""
+    -> [B, N, H], written into ``out`` when given (never x itself). K10 at
+    one step (:func:`crf_iterate_steps`). Not differentiable; the autograd
+    front is :func:`crf_core`."""
     if not on_cuda(x, zp, s, col, M):
         r = crf_iterate_plain(x, zp, s, col, M)
         return r if out is None else out.copy_(r)
     check_no_grad("crf_iterate", x, zp, s, M)
-    _check_state("x", x)
-    _check_state("zp", zp, x.shape[-1])
-    _check_operator(x, s, col, M)
-    if zp.shape != x.shape:
-        raise ValueError(f"zp {tuple(zp.shape)} != x {tuple(x.shape)}")
+    _check_iterate(x, zp, s, col, M)
     if out is None:
         out = torch.empty_like(x)
     else:
         _check_state("out", out, x.shape[-1])
         if out.shape != x.shape or out.data_ptr() == x.data_ptr():
             raise ValueError("out must be a separate tensor of x's shape")
-    B, N, H = x.shape
-    with torch.cuda.device(x.device):
-        CRF_ITERATE(ptr(x), ptr(zp), ptr(s), ptr(col), ptr(M), ptr(out),
-                    B, N, s.shape[2], H, stream(x.device))
+    _iterate_launch(x, zp, s, col, M, 1, out, None, None)
     return out
 
 
@@ -193,6 +214,58 @@ def crf_iterate_plain(x, zp, s, col, M):
     """Plain PyTorch version of :func:`crf_iterate` (differentiable by
     autograd in x, zp, s and M)."""
     return zp + _apply_rows(_message(x, s, col), M)
+
+
+def _check_iterate(x, zp, s, col, M) -> None:
+    _check_state("x", x)
+    _check_state("zp", zp, x.shape[-1])
+    _check_operator(x, s, col, M)
+    if zp.shape != x.shape:
+        raise ValueError(f"zp {tuple(zp.shape)} != x {tuple(x.shape)}")
+
+
+def crf_iterate_steps(
+    z: torch.Tensor, zp: torch.Tensor, s: torch.Tensor, col: torch.Tensor,
+    M: torch.Tensor, steps: int, xs: torch.Tensor = None,
+) -> torch.Tensor:
+    """x_steps of x_{t+1} = zp + (S~ x_t) M from x_0 = z, every step in one
+    launch of K10; shapes as :func:`crf_iterate`. With ``xs`` [steps, B, N,
+    H], xs[t] = x_t for t < steps (the stack the backward reads); otherwise
+    the steps ping-pong two buffers. Returns x_steps in a new tensor. Not
+    differentiable; the autograd front is :func:`crf_core`."""
+    if steps < 1:
+        raise ValueError(f"steps {steps} < 1")
+    if not on_cuda(z, zp, s, col, M):
+        return crf_iterate_steps_plain(z, zp, s, col, M, steps, xs)
+    check_no_grad("crf_iterate_steps", z, zp, s, M)
+    _check_iterate(z, zp, s, col, M)
+    ping = None
+    if xs is not None:
+        check(xs, "xs", torch.float32, 4)
+        if xs.shape != (steps,) + tuple(z.shape):
+            raise ValueError(f"xs {tuple(xs.shape)} for {steps} steps of "
+                             f"{tuple(z.shape)}")
+        xs[0].copy_(z)
+    elif steps > 1:
+        ping = torch.empty((min(steps - 1, 2),) + tuple(z.shape),
+                           dtype=z.dtype, device=z.device)
+    out = torch.empty_like(z)
+    _iterate_launch(z, zp, s, col, M, steps, out, xs, ping)
+    return out
+
+
+def crf_iterate_steps_plain(z, zp, s, col, M, steps, xs=None):
+    """Plain PyTorch version of :func:`crf_iterate_steps`: the loop over
+    :func:`crf_iterate_plain` (differentiable by autograd where ``xs`` is
+    not given)."""
+    x = z
+    if xs is not None:
+        xs[0].copy_(z)
+    for t in range(steps):
+        x = crf_iterate_plain(x, zp, s, col, M)
+        if xs is not None and t + 1 < steps:
+            xs[t + 1].copy_(x)
+    return x
 
 
 # ---------------------------------------------------------------------------
@@ -359,10 +432,14 @@ def transpose_sum_plain(offsets, slots, w, dmsg):
 
 def crf_neighbor_dot(
     dmsgs: torch.Tensor, xs: torch.Tensor, col: torch.Tensor,
+    tile: int = TILE, pad: int = PAD,
 ) -> torch.Tensor:
     """ds[b, m, k] = sum_t <dmsgs[t, b, m], xs[t, b, col[b, m, k]]>:
     dmsgs, xs [T, B, N, H] f32, col [B, N, K] int32 -> [B, N, K]; zero where
-    col < 0."""
+    col < 0. ``tile`` and ``pad`` are the geometry col was clamped with
+    (:func:`crf_operator`): the kernel stages, for each block of
+    :func:`neighbor_dot_rows` rows, the xs rows its columns span, at most
+    its tiles' windows. Deterministic: every sum runs in one fixed order."""
     if not on_cuda(dmsgs, xs, col):
         return crf_neighbor_dot_plain(dmsgs, xs, col)
     check_no_grad("crf_neighbor_dot", dmsgs, xs)
@@ -374,15 +451,43 @@ def crf_neighbor_dot(
     if dmsgs.shape != xs.shape or col.shape[:2] != (B, N):
         raise ValueError(f"dmsgs {tuple(dmsgs.shape)}, xs {tuple(xs.shape)}, "
                          f"col {tuple(col.shape)}")
-    ds = torch.empty((B, N, K), dtype=xs.dtype, device=xs.device)
-    with torch.cuda.device(xs.device):
-        CRF_NEIGHBOR_DOT(ptr(dmsgs), ptr(xs), ptr(col), ptr(ds), T, B, N, K,
-                         H, stream(xs.device))
+    dev = xs.device
+    ds = torch.empty((B, N, K), dtype=xs.dtype, device=dev)
+    rows = neighbor_dot_rows(K)
+    splits = _neighbor_dot_splits(T, B * -(-N // rows), dev)
+    part = (torch.empty((splits, B, N, K), dtype=xs.dtype, device=dev)
+            if splits > 1 else None)
+    # rows a block's columns may span: the windows of its tiles
+    cap = window_starts(N, N, tile, pad)[1] + max(rows - tile, 0)
+    launch_on(dev, CRF_NEIGHBOR_DOT, _pack15(
+        dmsgs.data_ptr(), xs.data_ptr(), col.data_ptr(), ds.data_ptr(),
+        0 if part is None else part.data_ptr(), T, splits, B, N, K, H, cap,
+        int(H % 4 == 0 and _aligned(dmsgs, xs)), rows, raw_stream(dev)))
     return ds
 
 
-def crf_neighbor_dot_plain(dmsgs, xs, col):
-    """Plain PyTorch version of :func:`crf_neighbor_dot`."""
+def neighbor_dot_rows(k: int) -> int:
+    """Rows of a K12 block (csrc/crf_neighbor_dot.cu): 128, four lanes a
+    row, where a lane's K sums fit its registers (K <= 16), else 64."""
+    return 128 if k <= 16 else 64
+
+
+def _neighbor_dot_splits(steps: int, blocks: int, device) -> int:
+    """Blocks a row tile of K12 splits its steps over: enough for two
+    blocks an SM where the clouds have few row tiles (the coarse scales),
+    at most one a step."""
+    sms = _sm_count(device.index)
+    return max(1, min(steps, -(-2 * sms // max(blocks, 1))))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def crf_neighbor_dot_plain(dmsgs, xs, col, tile=TILE, pad=PAD):
+    """Plain PyTorch version of :func:`crf_neighbor_dot` (the geometry is
+    not needed)."""
     ds = torch.zeros(col.shape, dtype=xs.dtype, device=xs.device)
     for t in range(xs.shape[0]):
         ds = ds + (dmsgs[t][:, :, None, :] * _gather_cols(xs[t], col)).sum(-1)
@@ -409,25 +514,16 @@ def crf_core(
 
 
 class _CRFCore(torch.autograd.Function):
-    """Forward: K9 once, K10 ``steps`` times (saving x_0..x_{steps-1} when a
-    gradient is needed). Backward: K11's plan once, its step ``steps``
-    times, K12 once."""
+    """Forward: K9 once, K10 once for all ``steps`` steps (saving
+    x_0..x_{steps-1} when a gradient is needed). Backward: K11's plan once,
+    its step ``steps`` times, K12 once."""
 
     @staticmethod
     def forward(ctx, z, zp, s, M, idx, steps, tile, pad):
         col = crf_operator(idx, tile, pad)
         save = any(ctx.needs_input_grad[:4])
         xs = z.new_empty((steps,) + tuple(z.shape)) if save else None
-        ping = None if save else (torch.empty_like(z), torch.empty_like(z))
-        x = z
-        if save:
-            xs[0].copy_(z)
-        for t in range(steps):
-            if t == steps - 1:
-                out = torch.empty_like(z)
-            else:
-                out = xs[t + 1] if save else ping[t % 2]
-            x = crf_iterate(x, zp, s, col, M, out=out)
+        x = crf_iterate_steps(z, zp, s, col, M, steps, xs=xs)
         if save:
             ctx.save_for_backward(s, M, col, xs)
             ctx.geometry = (tile, pad)
@@ -446,7 +542,7 @@ class _CRFCore(torch.autograd.Function):
             lam, _, dzp, dM = crf_iterate_bwd(
                 lam, xs[t], s, col, M, dzp, dM, dmsg_out=dmsgs[t], plan=plan
             )
-        ds = crf_neighbor_dot(dmsgs, xs, col)
+        ds = crf_neighbor_dot(dmsgs, xs, col, *ctx.geometry)
         return lam, dzp, ds, dM, None, None, None, None
 
 

@@ -271,7 +271,7 @@ class _DiscreteCore(torch.autograd.Function):
                 lam, qn, msgs[t], w, col, C, du, dC, dmsg_out=dmsgs[t],
                 plan=plan,
             )
-        dw = crf_neighbor_dot(dmsgs, qs, col)
+        dw = crf_neighbor_dot(dmsgs, qs, col, *ctx.geometry)
         return lam, -du, dw, -dC, None, None, None, None, None
 
 

@@ -465,9 +465,98 @@ def test_crf_kernels_raise_under_grad(dev):
         crf_core.crf_iterate(x.requires_grad_(), zp, s, col, m)
     with pytest.raises(ValueError):   # never in place
         crf_core.crf_iterate(zp, zp, s, col, m, out=zp)
+    with pytest.raises(RuntimeError, match="no backward"):
+        crf_core.crf_iterate_steps(x, zp, s, col, m, 2)
+    with pytest.raises(ValueError):   # a stack of another length
+        crf_core.crf_iterate_steps(zp, zp, s, col, m, 2,
+                                   xs=torch.empty(3, 1, 128, 8, device=dev))
     with pytest.raises(ValueError):   # stacks of two lengths
         crf_core.crf_neighbor_dot(torch.zeros(2, 1, 128, 8, device=dev),
                                   torch.zeros(1, 1, 128, 8, device=dev), col)
+
+
+# K10 runs every step of a call in one cooperative launch; K12 stages a
+# 64-row block's window of x_t in shared memory and splits the steps over
+# blocks at the coarse scales
+SCANNET_CRF_WIDTHS = [   # (b, n, h): the four GuideCRFConv layers, K = 15
+    (16, 8192, 32), (16, 2048, 64), (16, 512, 128), (16, 128, 256),
+]
+
+
+@pytest.mark.parametrize("save", [False, True])
+@pytest.mark.parametrize("steps", [1, 2, 10])
+@pytest.mark.parametrize("b,n,h,k,spread", CRF_SHAPES)
+def test_crf_iterate_steps_bit_equal(dev, b, n, h, k, spread, steps, save):
+    rng = np.random.default_rng(14)
+    z, zp, s, idx, m = _crf_inputs(rng, b, n, h, k, spread, dev)
+    col = crf_core.crf_operator(idx)
+    xs = torch.full((steps, b, n, h), float("nan"), device=dev) if save else None
+    got = crf_core.crf_iterate_steps(z, zp, s, col, m, steps, xs=xs)
+    xs_ref = torch.empty((steps, b, n, h), device=dev)
+    ref = crf_core.crf_iterate_steps_plain(z, zp, s, col, m, steps, xs_ref)
+    assert torch.equal(got, ref)          # each step bit-equal: so the last
+    if save:
+        assert torch.equal(xs, xs_ref)    # the stack the backward reads
+
+
+@pytest.mark.parametrize("b,n,h", SCANNET_CRF_WIDTHS)
+def test_crf_iterate_steps_full_width(dev, b, n, h):
+    """ScanNet's four CRF layers at full width, ten steps, one launch."""
+    from crfconv_tpu_torch import cuda_build
+
+    rng = np.random.default_rng(15)
+    z, zp, s, idx, m = _crf_inputs(rng, b, n, h, 15, 24, dev)
+    col = crf_core.crf_operator(idx)
+    xs = torch.empty((10, b, n, h), device=dev)
+    before = cuda_build.CRF_ITERATE.launches
+    got = crf_core.crf_iterate_steps(z, zp, s, col, m, 10, xs=xs)
+    assert cuda_build.CRF_ITERATE.launches == before + 1
+    xs_ref = torch.empty_like(xs)
+    ref = crf_core.crf_iterate_steps_plain(z, zp, s, col, m, 10, xs_ref)
+    assert torch.equal(got, ref) and torch.equal(xs, xs_ref)
+    assert bool(torch.isfinite(got).all())
+
+
+def _check_neighbor_dot(dmsgs, xs, col):
+    ds = crf_core.crf_neighbor_dot(dmsgs, xs, col)
+    ds_ref = crf_core.crf_neighbor_dot_plain(dmsgs, xs, col)
+    ds_mass = crf_core.crf_neighbor_dot_plain(dmsgs.abs(), xs.abs(), col)
+    assert bool(((ds - ds_ref).abs() <= 1e-5 * ds_mass + 1e-6).all())
+    assert bool((ds[col < 0] == 0).all())
+    # one fixed order a sum, no atomics: a rerun is bit-identical
+    assert torch.equal(ds, crf_core.crf_neighbor_dot(dmsgs, xs, col))
+
+
+@pytest.mark.parametrize("b,n,h,k,spread", CRF_SHAPES + [(16, 8192, 20, 31, 24)])
+def test_crf_neighbor_dot_ten_steps(dev, b, n, h, k, spread):
+    rng = np.random.default_rng(16)
+    _, _, _, idx, _ = _crf_inputs(rng, b, n, h, k, spread, dev)
+    col = crf_core.crf_operator(idx)
+    dmsgs = torch.randn(10, b, n, h, device=dev)
+    xs = torch.randn(10, b, n, h, device=dev)
+    _check_neighbor_dot(dmsgs, xs, col)
+
+
+@pytest.mark.parametrize("b,n,h", SCANNET_CRF_WIDTHS)
+def test_crf_neighbor_dot_full_width(dev, b, n, h):
+    rng = np.random.default_rng(17)
+    _, _, _, idx, _ = _crf_inputs(rng, b, n, h, 15, 24, dev)
+    col = crf_core.crf_operator(idx)
+    dmsgs = torch.randn(10, b, n, h, device=dev)
+    xs = torch.randn(10, b, n, h, device=dev)
+    _check_neighbor_dot(dmsgs, xs, col)
+
+
+def test_crf_neighbor_dot_any_columns(dev):
+    """Columns outside the staged window (not K9's) are read from global
+    memory: the result does not rest on the clamp."""
+    rng = np.random.default_rng(18)
+    b, n, h, k = 2, 1500, 32, 9
+    col = torch.as_tensor(rng.integers(-1, n, (b, n, k)).astype(np.int32),
+                          device=dev)
+    dmsgs = torch.randn(3, b, n, h, device=dev)
+    xs = torch.randn(3, b, n, h, device=dev)
+    _check_neighbor_dot(dmsgs, xs, col)
 
 
 # --------------------------------------------------------------------------
