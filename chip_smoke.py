@@ -45,7 +45,8 @@
     every call of every path; K10, one call a CRF core running all its
     steps, bit-equal with the stack it saves); each K11 call (and K14's
     in 14) is run twice (bit-identical) and every tenth, the first reverse
-    step of each core, held bit-equal to the plain version on CPU copies;
+    step of each core (every K14 call: all of a core's reverse steps), held
+    bit-equal to the plain version on CPU copies;
     each K12 call (and the discrete step's in 14) is run twice
     (bit-identical); the reverse steps' plans (S~^T's structure, built
     once a backward) are timed. K10's and K12's calls are also timed per
@@ -67,8 +68,12 @@
     8192, label_offset 1): a warm-up request (pyramid, forward, the last
     head log q, as the JAX package serves a two-head model) and a warm-up
     train step, recording every kernel call of each (K1, K2, K9, K13 in the
-    request; K1, K2, K8, K9, K12, K13, K14 in the step), each held against
-    its plain version and timed as in 3; DISCRETE_REQUESTS requests and
+    request; K1, K2, K8, K9, K12, K13, K14 in the step; K13 and K14 one call
+    a core for all its steps), each held against its plain
+    version and timed as in 3 (K13's and K14's bounds beside the sum of
+    their steps' one-step bounds), the request's K13 call and the step's
+    K14 call also against the same steps launched one at a time (bit-equal,
+    device and event ms of each); DISCRETE_REQUESTS requests and
     TRAIN_STEPS steps with exact launch counts, checked as in 11-12; a
     forward and a train step with the kernels against the plain versions,
     as in 13; profiles and peak memory.
@@ -203,7 +208,7 @@ DISCRETE_REQUESTS = 3
 # k-NN interpolation (4 decoders) and the discrete CRF's 2 (the kernel
 # embeddings, F = 5 x 64, and the radius mask's positions); K2 the pyramid's
 # 10 searches and the CRF's kNN(32); its fused core builds the operator once
-# (K9) and iterates 10 times (K13)
+# (K9) and runs its 10 steps in one launch (K13)
 DISCRETE_PER_REQUEST = {
     "windowed_gather": 10 + 4 * 2 + 2,
     "window_knn": 10 + 1,
@@ -216,25 +221,29 @@ DISCRETE_PER_REQUEST = {
     "crf_iterate": 0,
     "crf_iterate_bwd": 0,
     "crf_neighbor_dot": 0,
-    "discrete_iterate": 10,
+    "discrete_iterate": 1,
     "discrete_iterate_bwd": 0,
     "select_min_k": 0,        # the exact regime only
     "leaky_relu_bwd": 0,
 }
 # per ScanNet-discrete train step: the forward's, and in the backward K8 for
 # every gather whose source needs a gradient (not the 4 + 1 of positions),
-# one build of the transpose's structure and 10 reverse steps (K14), one
-# neighbour dot (K12) and one leaky-ReLU backward per activation
+# one build of the plan (S~^T by rows) and one launch of K14 for the 10
+# reverse steps, one neighbour dot (K12) and one leaky-ReLU backward per
+# activation
 DISCRETE_PER_STEP = {
     **DISCRETE_PER_REQUEST,
     "windowed_gather_bwd": 10 + 4 + 1,
-    "discrete_iterate_bwd": 1 + 10,
+    "discrete_iterate_bwd": 1 + 1,
     "crf_neighbor_dot": 1,
     "leaky_relu_bwd": 37,
 }
-DISCRETE_CALLS_PER_STEP = {**DISCRETE_PER_STEP, "discrete_iterate_bwd": 10}
+# calls of each wrapper per discrete step: K14's alone (its plan is built
+# outside the wrapper)
+DISCRETE_CALLS_PER_STEP = {**DISCRETE_PER_STEP, "discrete_iterate_bwd": 1}
 EXACT_REQUESTS = 3
 EXACT = None    # NeighborMode("exact"), set in main() after the import check
+CARD = ""       # the card's name and power limit (nvidia-smi), set in main()
 # launches per exact-regime request: K6 selects every kNN of the pyramid (a
 # same-scale and an upsample search per scale), plus the discrete CRF's
 # kNN(32); no other kernel runs in the exact regime (its gathers are plain
@@ -419,7 +428,7 @@ def record_calls(sites, run, snapshot=()):
     the caller overwrites later (the CRF cores' ping-pong states), the
     tensors are copied as they were and the output buffers dropped, so a
     replay computes the recorded call into fresh outputs; a K13 call that
-    saved its message replays with ``with_msg``, a K10 call that saved its
+    saved its stacks replays with ``with_stack``, a K10 call that saved its
     stack with ``with_xs``."""
     calls = {name: [] for name in sites}
 
@@ -427,9 +436,10 @@ def record_calls(sites, run, snapshot=()):
         def rec(*args, **kwargs):
             if name in snapshot:
                 kw = {k: v for k, v in kwargs.items()
-                      if k not in ("out", "dmsg_out", "msg_out", "xs")}
-                if kwargs.get("msg_out") is not None:
-                    kw["with_msg"] = True   # K13 saving the message
+                      if k not in ("out", "dmsg_out", "msg_out", "xs", "qs",
+                                   "msgs", "dmsgs")}
+                if kwargs.get("msgs") is not None:
+                    kw["with_stack"] = True   # K13 saving its stacks
                 if kwargs.get("xs") is not None:
                     kw["with_xs"] = True    # K10 saving the stack
                 calls[name].append((
@@ -458,7 +468,9 @@ def nbytes(*ts) -> int:
                if isinstance(t, torch.Tensor))
 
 
-def bound_of(name, args, out):
+def bound_of(name, args, out, kwargs=None):
+    outs = out if isinstance(out, tuple) else (out,)
+    in_bytes = nbytes(*args)
     if name == "windowed_gather":
         ops = 0
     elif name == "window_knn":
@@ -502,23 +514,55 @@ def bound_of(name, args, out):
         ops = b * m * k * (2 * h * h + 11 * h + 3 + res.shape[2])
     elif name == "select_min_k":
         ops = args[0].numel()              # a comparison per entry
-    elif name in ("discrete_iterate", "discrete_iterate_bwd"):
-        q, w = args[0], args[3]
-        b, n, l = q.shape
-        k = w.shape[2]
-        # the message (2 K L a row), the L x L product (2 L^2) and the
-        # softmax (~5 L); the backward's dot, dz, du (5 L), dmsg and dC
-        # (2 L^2 each) and the scatter (2 K L)
-        ops = b * n * (2 * k * l + 2 * l * l + 5 * l if name ==
-                       "discrete_iterate" else 2 * k * l + 4 * l * l + 5 * l)
+    elif name == "discrete_iterate":
+        # every step's message (2 L a kept slot), L x L product (2 L^2) and
+        # softmax (~5 L a row); p, u, w, col, C read, q_steps (and the
+        # stacks) written once
+        p_, col_, steps = args[0], args[3], args[5]
+        b, n, l = p_.shape
+        slots = int((col_ >= 0).sum())
+        ops = steps * (2 * slots * l + b * n * (2 * l * l + 5 * l))
+    elif name == "discrete_iterate_bwd":
+        # every reverse step's transpose (2 L a term of the plan), dmsg and
+        # dC (2 L^2 each) and dot, dz, du (~5 L a row); g, q_1..q_steps, the
+        # msg stack, C and the plan (S~^T by rows, encoding w and col) read,
+        # dp, the dmsg stack, du and dC written once
+        g_, qs_, plan = args[0], args[1], kwargs.get("plan")
+        steps, b, n, l = qs_.shape
+        terms = (int(plan.row_ptr[-1]) if plan is not None
+                 else int((args[5] >= 0).sum()))
+        ops = steps * (2 * terms * l + b * n * (4 * l * l + 5 * l))
+        in_bytes = (nbytes(g_, qs_[1:], args[2], args[3], args[6])
+                    + 4 * (b * n + 1) + 8 * terms)
     else:  # crf_similarity_message
         y, idx = args[0], args[2]
         b, n, h = y.shape
         ops = b * n * idx.shape[2] * (5 * h + 4)
-    outs = out if isinstance(out, tuple) else (out,)
-    t_bytes = (nbytes(*args) + nbytes(*outs)) / PEAK_BYTES_PER_S * 1e3
+    t_bytes = (in_bytes + nbytes(*outs)) / PEAK_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_F32_OPS_PER_S * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def step_bound_of(name, args, out) -> float:
+    """The sum of the one-step bounds of a fused discrete call's steps (K13,
+    K14): each step's inputs read and outputs written once, as the one-step
+    entries (one launch a step) move them."""
+    if name == "discrete_iterate":
+        state, w_, col_, c_, steps = args[0], args[2], args[3], args[4], args[5]
+        rows = 3 + (out[2] is not None)  # q_t, u, q_{t+1} (and msg_t)
+        mats = nbytes(c_)
+    else:
+        state, w_, col_, c_ = args[0], args[4], args[5], args[6]
+        steps = args[1].shape[0]
+        rows = 7  # lam, q_{t+1}, msg_t, du in; lam_t, dmsg_t, du out
+        mats = 3 * nbytes(c_)  # C, and dC in and out
+    b, n, l = state.shape
+    per_row = 2 * l * l + 5 * l if name == "discrete_iterate" else \
+        4 * l * l + 5 * l
+    ops = 2 * int((col_ >= 0).sum()) * l + b * n * per_row
+    step_bytes = rows * nbytes(state) + nbytes(w_, col_) + mats
+    return steps * max(step_bytes / PEAK_BYTES_PER_S,
+                       ops / PEAK_F32_OPS_PER_S) * 1e3
 
 
 # --------------------------------------------------------------------------
@@ -626,27 +670,40 @@ def compare(name, args, got, ref):
         expect(torch.equal(got[1], ref[1]), f"{name}: rider max not equal")
         return float((got[0] - ref[0]).abs().max())
     if name == "discrete_iterate":
-        # one sum order (k, then j, then l ascending) in both; expf may round
-        # apart from torch.exp
+        # every step in one sum order (k, then j, then l ascending) in both;
+        # expf may round apart from torch.exp, so q_steps and the q stack
+        # are held to 2e-6 of their scale, and every msg_t bit-equal to the
+        # message of the kernel's own q_t
+        from crfconv_tpu_torch.ops.crf_core import _message
         q_scale = float(ref[0].abs().max())
         d_q = float((got[0] - ref[0]).abs().max())
         BIT_EQUAL.setdefault(name, True)
         BIT_EQUAL[name] &= bool(torch.equal(got[0], ref[0]))
         expect(d_q <= 2e-6 * q_scale, f"{name}: q off by {d_q}")
         if ref[1] is not None:
-            expect(got[1] is not None and torch.equal(got[1], ref[1]),
-                   f"{name}: msg not bit-equal")
+            expect(got[1] is not None, f"{name}: no stacks saved")
+            d_s = float((got[1] - ref[1]).abs().max())
+            expect(d_s <= 2e-6 * q_scale, f"{name}: q stack off by {d_s}")
+            BIT_EQUAL[name] &= bool(torch.equal(got[1], ref[1])
+                                    and torch.equal(got[2], ref[2]))
+            w_, col = args[2], args[3]
+            expect(all(torch.equal(got[2][t], _message(got[1][t], w_, col))
+                       for t in range(got[1].shape[0])),
+                   f"{name}: a msg_t not bit-equal to the message of its q_t")
+            d_q = max(d_q, d_s)
         return d_q
     if name == "discrete_iterate_bwd":
-        lam, qn, msg, w_, col, c_, du, dc = args[:8]
-        # dmsg and du + dz: one order, as the plain version
-        expect(torch.equal(got[1], ref[1]) and torch.equal(got[2], ref[2]),
-               f"{name}: dmsg or du not bit-equal")
-        lam_bound(name, got[0], w_, col, got[1])   # as K11's lam_t
-        # dC: chunk sums added in order into the running sum, as K11's dM
-        l = lam.shape[-1]
-        dz = (got[2] - du).abs()
-        dc_mass = dc.abs() + msg.abs().reshape(-1, l).T @ dz.reshape(-1, l)
+        g_, qs_, q_last, msgs_, w_, col, c_ = args[:7]
+        # the first reverse step reads the same inputs in both: its dmsg is
+        # bit-equal; the later ones read lam, which the plain version on the
+        # card adds with atomics (check_reverse holds every output bit-equal
+        # to the plain version on CPU copies)
+        expect(torch.equal(got[1][-1], ref[1][-1]),
+               f"{name}: the first reverse step's dmsg not bit-equal")
+        lam_bound(name, got[0], w_, col, got[1][0])   # lam_0, as K11's lam_t
+        # dC: every row's and step's products summed in a fixed order of
+        # partials, against the mass of its terms over the kernel's steps
+        dc_mass = discrete_dc_mass(args, got)
         expect(bool(((got[3] - ref[3]).abs() <= 1e-4 * dc_mass
                      + 1e-6 * float(dc_mass.max())).all()),
                f"{name}: dC outside 1e-4 of its mass")
@@ -672,6 +729,24 @@ def compare(name, args, got, ref):
         expect(ok, f"{name}: outside rtol 1e-4 atol 1e-5")
         err = max(err, float((a - r).abs().max()))
     return err
+
+
+def discrete_dc_mass(args, got):
+    """sum_t |msg_t|^T |dz_t| of a fused K14 call, dz_t formed from the
+    kernel's own dmsg stack (lam_{t+1} = S~^T dmsg_{t+1}, g at the top)."""
+    from crfconv_tpu_torch.ops.crf_core import crf_iterate_bwd_plain
+    g_, qs_, q_last, msgs_, w_, col = args[:6]
+    steps, l = qs_.shape[0], qs_.shape[-1]
+    eye = torch.eye(l, device=g_.device)
+    zero = torch.zeros_like(g_)
+    mass = torch.zeros((l, l), device=g_.device)
+    for t in range(steps):
+        qn = q_last if t == steps - 1 else qs_[t + 1]
+        lam = g_ if t == steps - 1 else crf_iterate_bwd_plain(
+            got[1][t + 1], zero, w_, col, eye, zero, torch.zeros_like(eye))[0]
+        dz = qn * (lam - (lam * qn).sum(-1, keepdim=True))
+        mass += msgs_[t].abs().reshape(-1, l).T @ dz.abs().reshape(-1, l)
+    return mass
 
 
 # K8's determinism checks per path: [calls, reruns bit-identical, calls
@@ -739,32 +814,34 @@ def lam_bound(name, lam_t, w, col, dmsg) -> None:
 # K11's and K14's determinism checks per path: [calls, reruns
 # bit-identical, calls held to the plain version on CPU copies, of those
 # bit-equal]. The CPU check takes the first reverse step of each core's
-# backward (every REVERSE_CPU_EVERY-th call: 10 steps a core)
+# backward for K11 (every REVERSE_CPU_EVERY-th call: 10 steps a core) and
+# every K14 call (all of a core's reverse steps in one call)
 REVERSE_CHECKS = {}
 REVERSE_CPU_EVERY = 10
 
 
 def check_reverse(name, kernel, plain, i, args, kwargs, got, path) -> None:
-    """A second launch of a reverse step (K11, K14) is bit-identical in
-    every output; on every REVERSE_CPU_EVERY-th call the step is bit-equal
-    to the plain version run on CPU copies of the inputs (lam_t adds in
-    index_add_'s CPU order, dmsg and the running sum of dzp or du in the
-    plain version's; dM or dC is held to its bound in compare)."""
+    """A second launch of a reverse step (K11) or of a core's reverse steps
+    (K14) is bit-identical in every output; on every REVERSE_CPU_EVERY-th
+    K11 call and every K14 call the outputs are bit-equal to the plain
+    version run on CPU copies of the inputs (lam_t adds in index_add_'s CPU
+    order, dmsg and the running sum of dzp or du in the plain version's; dM
+    or dC is held to its bound in compare)."""
     rec = REVERSE_CHECKS.setdefault(f"{name} ({path})", [0, 0, 0, 0])
     rec[0] += 1
     again = kernel(*args, **kwargs)
     same = all(torch.equal(a, b) for a, b in zip(got, again))
     rec[1] += same
     expect(same, f"{name} ({path}): a rerun is not bit-identical")
-    if i % REVERSE_CPU_EVERY:
+    if name == "crf_iterate_bwd" and i % REVERSE_CPU_EVERY:
         return
     rec[2] += 1
     cpu = [a.cpu() if isinstance(a, torch.Tensor) else a for a in args]
     ref = plain(*cpu)
     equal = all(torch.equal(a.cpu(), r) for a, r in zip(got[:3], ref[:3]))
     rec[3] += equal
-    expect(equal, f"{name} ({path}): lam_t, dmsg or the running sum not "
-           "bit-equal to the plain version on the CPU")
+    expect(equal, f"{name} ({path}): lam_t (dp), dmsg or the running sum "
+           "not bit-equal to the plain version on the CPU")
 
 
 def plan_ms(name, calls) -> dict:
@@ -773,21 +850,21 @@ def plan_ms(name, calls) -> dict:
     backward, outside the steps' own times."""
     from crfconv_tpu_torch.ops import crf_core, discrete_core
 
-    build = (crf_core.crf_reverse_plan if name == "crf_iterate_bwd"
-             else discrete_core.discrete_reverse_plan)
-    w_at = 3 if name == "crf_iterate_bwd" else 4   # col, then the matrix
     plans = {}
     for args, kwargs in calls:
-        plans.setdefault(id(kwargs["plan"]),
-                         (args[w_at], args[w_at + 1],
-                          kwargs["plan"].geometry))
+        geo = kwargs["plan"].geometry
+        plans.setdefault(id(kwargs["plan"]), (
+            (crf_core.crf_reverse_plan, (args[3], args[4]) + geo)
+            if name == "crf_iterate_bwd" else
+            (discrete_core.discrete_reverse_plan, tuple(args[4:7]) + geo)))
     jobs = list(plans.values())
 
     def run():
-        return [build(col, w, *geo) for col, w, geo in jobs]
+        return [build(*a) for build, a in jobs]
 
     return {"plans": len(jobs), "ms": median_ms(run),
-            "device_ms": device_ms(run)[0], "host_us": host_us(run, len(jobs))}
+            "device_ms": device_ms(run, 5 if len(jobs) == 1 else 1)[0],
+            "host_us": host_us(run, len(jobs))}
 
 
 def library_call(name, args):
@@ -814,11 +891,14 @@ def library_call(name, args):
     return None
 
 
-def device_ms(fn):
+def device_ms(fn, reps: int = 1):
     """Device time of one call of ``fn``: the sum of every CUDA kernel,
-    copy and fill it ran (torch.profiler), and those by name."""
-    rows = profile_device(fn)
-    return sum(r[1] for r in rows), [(k[:60], ms, n) for k, ms, n in rows]
+    copy and fill it ran (torch.profiler), and those by name, over ``reps``
+    calls profiled together, divided by ``reps`` (the profiler misses a
+    single short call)."""
+    rows = profile_device(lambda: [fn() for _ in range(reps)])
+    return (sum(r[1] for r in rows) / reps,
+            [(k[:60], ms / reps, n / reps) for k, ms, n in rows])
 
 
 def host_us(fn, calls: int, runs: int = 5) -> float:
@@ -894,43 +974,76 @@ def per_width(name, kernel, calls) -> list:
     return rows
 
 
-def steps_vs_launches(calls) -> dict:
-    """K10's recorded calls run as recorded (all of a call's steps in one
-    launch, grid barriers between steps) and as one launch a step (the
-    same kernel at steps = 1, ping-ponging two buffers): device and event
-    ms of each, and the launches."""
-    from crfconv_tpu_torch.ops import crf_core
+def steps_vs_launches(name, calls) -> dict:
+    """A fused CRF kernel's recorded calls (K10's or K13's of a request, K14's
+    of a step) run as recorded (all of a call's steps in one launch, grid
+    barriers between steps) and as one launch a step (the same kernel at
+    steps = 1, ping-ponging two buffers, or K14's one-step entry over the
+    call's plan): device and event ms of each, and the launches. The two
+    run the same arithmetic: their outputs must be bit-equal (K14's dC adds
+    its partials in another order)."""
+    from crfconv_tpu_torch.ops import crf_core, discrete_core
 
-    bufs = [(torch.empty_like(a[0]), torch.empty_like(a[0])) for a, _ in calls]
+    if name == "discrete_iterate_bwd":
+        def fused_one(a, k):
+            return discrete_core.discrete_iterate_bwd_steps(*a[:7],
+                                                            plan=k["plan"])
 
-    def fused():
-        for a, _ in calls:
-            crf_core.crf_iterate_steps(*a[:6])
+        def stepwise_one(i, a, k):
+            g_, qs_, q_last, msgs_, w_, col, c_ = a[:7]
+            steps = qs_.shape[0]
+            lam, du, dC = g_, torch.zeros_like(g_), torch.zeros_like(c_)
+            dmsgs = torch.empty_like(msgs_)
+            for t in reversed(range(steps)):
+                qn = q_last if t == steps - 1 else qs_[t + 1]
+                lam, _, du, dC = discrete_core.discrete_iterate_bwd(
+                    lam, qn, msgs_[t], w_, col, c_, du, dC,
+                    dmsg_out=dmsgs[t], plan=k["plan"])
+            return lam, dmsgs, du
+        steps_of = [a[1].shape[0] for a, _ in calls]
+    else:
+        fuse, one = ((crf_core.crf_iterate_steps, crf_core.crf_iterate)
+                     if name == "crf_iterate" else
+                     (discrete_core.discrete_iterate_steps,
+                      discrete_core.discrete_iterate))
+        bufs = [(torch.empty_like(a[0]), torch.empty_like(a[0]))
+                for a, _ in calls]
 
-    def stepwise():
-        for (a, _), ping in zip(calls, bufs):
+        def fused_one(a, k):
+            return (fuse(*a[:6]),)
+
+        def stepwise_one(i, a, k):
             x = a[0]
             for t in range(a[5]):
-                x = crf_core.crf_iterate(x, *a[1:5], out=ping[t % 2])
+                x = one(x, *a[1:5], out=bufs[i][t % 2])
+            return (x,)
+        steps_of = [a[5] for a, _ in calls]
+
+    def fused():
+        for a, k in calls:
+            fused_one(a, k)
+
+    def stepwise():
+        for i, (a, k) in enumerate(calls):
+            stepwise_one(i, a, k)
 
     # one order of the sums: the two are bit-equal
-    for (a, _), ping in zip(calls, bufs):
-        x = a[0]
-        for t in range(a[5]):
-            x = crf_core.crf_iterate(x, *a[1:5], out=ping[t % 2])
-        expect(torch.equal(x, crf_core.crf_iterate_steps(*a[:6])),
-               "crf_iterate: one launch a step differs from the fused call")
-    r = {"launches_fused": len(calls),
-         "launches_stepwise": sum(a[5] for a, _ in calls)}
+    for i, (a, k) in enumerate(calls):
+        got, ref = fused_one(a, k), stepwise_one(i, a, k)
+        expect(all(torch.equal(x, y) for x, y in zip(got, ref)),
+               f"{name}: one launch a step differs from the fused call")
+    r = {"launches_fused": len(calls), "launches_stepwise": sum(steps_of)}
+    reps = 5 if len(calls) == 1 else 1   # the profiler misses one call
     for label, fn in (("fused", fused), ("stepwise", stepwise),
                       ("stepwise_again", stepwise), ("fused_again", fused)):
-        r[f"{label}_device_ms"] = device_ms(fn)[0]
+        r[f"{label}_device_ms"] = device_ms(fn, reps)[0]
         r[f"{label}_ms"] = median_ms(fn)
     return r
 
 
 def kernel_phase(name, kernel, plain, calls, path):
     err, bound_ms, by_ops = 0.0, 0.0, {"bytes": 0.0, "operations": 0.0}
+    step_bound_ms = None   # K13's, K14's: the sum of their one-step bounds
     ref_max = 0.0
     for i, (args, kwargs) in enumerate(calls):
         got = kernel(*args, **kwargs)
@@ -947,9 +1060,12 @@ def kernel_phase(name, kernel, plain, calls, path):
             if isinstance(r, torch.Tensor) and r.is_floating_point()
             and r.numel()
         ])
-        b_ms, b_by = bound_of(name, args, got)
+        b_ms, b_by = bound_of(name, args, got, kwargs)
         bound_ms += b_ms
         by_ops[b_by] += b_ms
+        if name in ("discrete_iterate", "discrete_iterate_bwd"):
+            step_bound_ms = (step_bound_ms or 0.0) + step_bound_of(name, args,
+                                                                    got)
     of_bound = OF_BOUND.pop(name, None)
 
     def run_kernel():
@@ -957,22 +1073,26 @@ def kernel_phase(name, kernel, plain, calls, path):
             kernel(*a, **k)
 
     ms = median_ms(run_kernel)
-    kernel_device_ms, device_kernels = device_ms(run_kernel)
+    reps = 5 if len(calls) == 1 else 1   # the profiler misses one call
+    kernel_device_ms, device_kernels = device_ms(run_kernel, reps)
     kernel_host_us = host_us(run_kernel, len(calls))
     plain_ms = median_ms(lambda: [plain(*a, **k) for a, k in calls])
     libs = [library_call(name, a) for a, _ in calls]
     library_ms = library_device_ms = None
     if all(libs):
         library_ms = median_ms(lambda: [f() for f in libs])
-        library_device_ms = device_ms(lambda: [f() for f in libs])[0]
+        library_device_ms = device_ms(lambda: [f() for f in libs], reps)[0]
     split = host_split_us(kernel, calls) if name == "windowed_gather" else None
     plans = (plan_ms(name, calls) if name in ("crf_iterate_bwd",
                                               "discrete_iterate_bwd")
              else None)
     widths = (per_width(name, kernel, calls)
               if name in ("crf_iterate", "crf_neighbor_dot") else None)
-    barrier = (steps_vs_launches(calls)
-               if name == "crf_iterate" and path == "scannet serve" else None)
+    barrier = (steps_vs_launches(name, calls)
+               if (name, path) in (("crf_iterate", "scannet serve"),
+                                   ("discrete_iterate", "discrete serve"),
+                                   ("discrete_iterate_bwd", "discrete train"))
+               else None)
     return {
         "name": name,
         "route": "cuda",
@@ -988,6 +1108,7 @@ def kernel_phase(name, kernel, plain, calls, path):
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
         "bound_by": max(by_ops, key=by_ops.get),
+        "step_bound_ms": step_bound_ms,
         "library_ms": library_ms,
         "library_device_ms": library_device_ms,
         "calls": len(calls),
@@ -1200,7 +1321,7 @@ def run_phases(results: dict, path: str, sites, calls) -> None:
 
 
 def print_phase(r) -> None:
-    print(f"# {r['name']} ({r['path']}): {r['calls']} calls, kernel "
+    print(f"# {r['name']} ({r['path']}; {CARD}): {r['calls']} calls, kernel "
           f"{r['ms']:.4f} ms (device {r['device_ms']:.4f} ms, host "
           f"{r['host_us']:.1f} us a call), "
           f"plain {r['plain_ms']:.4f} ms, bound {r['bound_ms'] * 1e3:.2f} us "
@@ -1227,8 +1348,11 @@ def print_phase(r) -> None:
               + ")" + ("" if "step_bound_ms" not in w else
                        f", {w['steps']} steps' one-step bounds "
                        f"{w['step_bound_ms'] * 1e3:.2f} us"), flush=True)
+    if r.get("step_bound_ms"):
+        print(f"#   {r['name']} the steps' one-step bounds sum to "
+              f"{r['step_bound_ms'] * 1e3:.2f} us", flush=True)
     if r.get("steps_vs_launches"):
-        print(f"#   crf_iterate steps in one launch vs one launch a step: "
+        print(f"#   {r['name']} steps in one launch vs one launch a step: "
               f"{r['steps_vs_launches']}", flush=True)
 
 
@@ -1897,34 +2021,41 @@ def serve_last_head(predictor, pos, feats):
         return predictor.restore(logq, order)
 
 
-def _k13(q, u, w, col, C, with_msg=False):
-    """K13 as a phase replays it: (q_next, msg_t or None)."""
+def _k13(p, u, w, col, C, steps, with_stack=False):
+    """K13 as a phase replays it: (q_steps, the q stack or None, the msg
+    stack or None)."""
     from crfconv_tpu_torch.ops import discrete_core
 
-    msg = torch.empty_like(q) if with_msg else None
-    return discrete_core.discrete_iterate(q, u, w, col, C, msg_out=msg), msg
+    qs = p.new_empty((steps,) + tuple(p.shape)) if with_stack else None
+    msgs = torch.empty_like(qs) if with_stack else None
+    return (discrete_core.discrete_iterate_steps(p, u, w, col, C, steps,
+                                                 qs=qs, msgs=msgs), qs, msgs)
 
 
-def _k13_plain(q, u, w, col, C, with_msg=False):
+def _k13_plain(p, u, w, col, C, steps, with_stack=False):
     from crfconv_tpu_torch.ops import discrete_core
 
-    out, msg = discrete_core._iterate_plain(q, u, w, col, C)
-    return out, (msg if with_msg else None)
+    qs = p.new_empty((steps,) + tuple(p.shape)) if with_stack else None
+    msgs = torch.empty_like(qs) if with_stack else None
+    return (discrete_core.discrete_iterate_steps_plain(p, u, w, col, C, steps,
+                                                       qs, msgs), qs, msgs)
 
 
 def discrete_call_sites():
     """As :func:`call_sites`, for the discrete core's kernels, reached from
-    its autograd Function (K9 and K12 are the continuous core's)."""
+    its autograd Function (K9 and K12 are the continuous core's; K13 and K14
+    through their steps entries, one call a core)."""
     from crfconv_tpu_torch.ops import crf_core, discrete_core
 
     return {
         "crf_operator": (discrete_core, "crf_operator", crf_core.crf_operator,
                          crf_core.crf_operator_plain),
-        "discrete_iterate": (discrete_core, "discrete_iterate", _k13,
+        "discrete_iterate": (discrete_core, "discrete_iterate_steps", _k13,
                              _k13_plain),
-        "discrete_iterate_bwd": (discrete_core, "discrete_iterate_bwd",
-                                 discrete_core.discrete_iterate_bwd,
-                                 discrete_core.discrete_iterate_bwd_plain),
+        "discrete_iterate_bwd": (
+            discrete_core, "discrete_iterate_bwd_steps",
+            discrete_core.discrete_iterate_bwd_steps,
+            discrete_core.discrete_iterate_bwd_steps_plain),
         "crf_neighbor_dot": (discrete_core, "crf_neighbor_dot",
                              crf_core.crf_neighbor_dot,
                              crf_core.crf_neighbor_dot_plain),
@@ -2624,14 +2755,14 @@ def main() -> int:
     from crfconv_tpu_torch import NeighborMode, Predictor, cuda_build
     from crfconv_tpu_torch.serve import SERVING_MODE
 
-    global EXACT
+    global EXACT, CARD
     EXACT = NeighborMode("exact")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device(DEVICE)
     out_dir = os.path.join(HERE, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
-    smi = smi_line()
+    smi = CARD = smi_line()
     print(smi, flush=True)
     print(f"# torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}", flush=True)
@@ -2775,7 +2906,8 @@ def main() -> int:
                                "bound_ms", "bound_by", "library_ms",
                                "library_device_ms", "of_bound",
                                "host_split_us", "plan", "device_kernels",
-                               "widths", "steps_vs_launches")}
+                               "widths", "steps_vs_launches",
+                               "step_bound_ms")}
             for p in phases
         ]
         kernels.append(r)

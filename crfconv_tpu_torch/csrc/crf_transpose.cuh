@@ -1,9 +1,10 @@
-// The transpose half of a CRF core's reverse step, shared by K11 (the
-// continuous core) and K14 (the discrete core). Both end a step with
+// The transpose half of K11's reverse step (the continuous CRF core;
+// K14, the discrete core's, sums over S~^T by rows in its own launch). A
+// step ends with
 //
 //   lam_t[b, r, :] = sum over the slots (m, j) with col[b, m, j] == r of
 //                    w[b, m, j] * dmsg[b, m, :]          (lam_t = S~^T dmsg)
-//   dW_out         = dW_in + sum_m P[m, :]^T Q[m, :]    (dM or dC)
+//   dW_out         = dW_in + sum_m P[m, :]^T Q[m, :]    (dM)
 //
 // with no atomics, so both are identical from run to run:
 //

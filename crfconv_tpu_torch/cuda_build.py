@@ -119,7 +119,7 @@ class Kernel:
         self._count(self._extra[symbol](packed), symbol)
 
 
-# K1, K2, K8, K10-K12 and K14 take their arguments packed as int64s in one
+# K1, K2, K8 and K10-K14 take their arguments packed as int64s in one
 # bytes object (``struct.pack``): per call that costs the host a few
 # microseconds less than ctypes' conversion of a dozen arguments.
 WINDOWED_GATHER = Kernel(
@@ -167,12 +167,12 @@ POINT_CONV_FUSED_STRIDED = Kernel(
 )
 DISCRETE_ITERATE = Kernel(
     "discrete_iterate", "discrete_iterate.cu", "discrete_iterate_f32",
-    [_P] * 7 + [_I] * 4 + [_P],
+    [ctypes.c_char_p],
 )
 DISCRETE_ITERATE_BWD = Kernel(
     "discrete_iterate_bwd", "discrete_iterate_bwd.cu",
     "discrete_iterate_bwd_f32", [ctypes.c_char_p],
-    extra=("discrete_iterate_bwd_transpose_i32",),
+    extra=("discrete_iterate_bwd_plan_i32",),
 )
 SELECT_MIN_K = Kernel(
     "select_min_k", "select_min_k.cu", "select_min_k_f32",

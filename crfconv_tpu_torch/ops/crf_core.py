@@ -274,15 +274,14 @@ def crf_iterate_steps_plain(z, zp, s, col, M, steps, xs=None):
 
 
 class ReversePlan:
-    """What the reverse steps of one backward call share (K11's, or K14's
-    through ``kernel``), built once: S~^T's structure over the operator's
-    columns col [B, N, K] (K8's tile_inverse: each 64-row tile's slots
-    sorted by window row, then by slot; a clamped row outside [0, N) is
-    dropped), W^T for the step's matrix W [H, H] (M or C), a workspace row
-    per state row (msg_t or dz_t) and ``parts`` [H, H] partial sums of dW.
-    Its launch counts as one of the kernel's."""
+    """What K11's reverse steps of one backward call share, built once:
+    S~^T's structure over the operator's columns col [B, N, K] (K8's
+    tile_inverse: each 64-row tile's slots sorted by window row, then by
+    slot; a clamped row outside [0, N) is dropped), M^T for M [H, H], a
+    workspace row per state row (msg_t) and ``parts`` [H, H] partial sums
+    of dM. Its launch counts as one of K11's."""
 
-    def __init__(self, kernel, symbol, col, W, tile=TILE, pad=PAD):
+    def __init__(self, col, W, tile=TILE, pad=PAD):
         check(col, "col", torch.int32, 3)
         B, N, K = col.shape
         H = W.shape[0]
@@ -304,9 +303,10 @@ class ReversePlan:
         self.parts = max(1, min(-(-_PART_BLOCKS // tiles), -(-(B * N) // 64)))
         self.part = torch.empty((self.parts, H, H), dtype=torch.float32,
                                 device=dev)
-        launch_on(dev, kernel.call, symbol, _pack11(
-            col.data_ptr(), self.starts.data_ptr(), self.order, self.runs, B,
-            N, K, tile, self.width, self.front, raw_stream(dev)))
+        launch_on(dev, CRF_ITERATE_BWD.call, "crf_iterate_bwd_transpose_i32",
+                  _pack11(col.data_ptr(), self.starts.data_ptr(), self.order,
+                          self.runs, B, N, K, tile, self.width, self.front,
+                          raw_stream(dev)))
 
     def check(self, lam, col, W) -> None:
         B, N, H = lam.shape
@@ -317,8 +317,7 @@ class ReversePlan:
 
 def crf_reverse_plan(col, M, tile: int = TILE, pad: int = PAD) -> ReversePlan:
     """K11's :class:`ReversePlan` for the operator's columns ``col`` and M."""
-    return ReversePlan(CRF_ITERATE_BWD, "crf_iterate_bwd_transpose_i32", col,
-                       M, tile, pad)
+    return ReversePlan(col, M, tile, pad)
 
 
 def crf_iterate_bwd(

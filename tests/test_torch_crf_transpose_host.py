@@ -186,13 +186,28 @@ def test_discrete_core_backward_via_transpose_matches_pallas(monkeypatch):
     p, u, w, c = (a.astype(np.float32) for a in (p, u, w, c))
     idx = idx.astype(np.int32)
     g = np.random.default_rng(9).standard_normal(p.shape).astype(np.float32)
-    monkeypatch.setattr(
-        discrete_core, "discrete_iterate_bwd",
-        _via_transpose(discrete_core.discrete_iterate_bwd_plain, 3))
+    step = _via_transpose(discrete_core.discrete_iterate_bwd_plain, 3)
+    calls = []
+
+    def steps_via_transpose(g_, qs, q_last, msgs, w_, col, c_, plan=None,
+                            dmsgs=None):
+        """K14's reverse steps, each step's lam_t from the transpose."""
+        calls.append(qs.shape[0])
+        dmsgs = torch.empty_like(msgs)
+        lam, du, dC = g_, torch.zeros_like(g_), torch.zeros_like(c_)
+        for t in reversed(range(qs.shape[0])):
+            qn = q_last if t == qs.shape[0] - 1 else qs[t + 1]
+            lam, _, du, dC = step(lam, qn, msgs[t], w_, col, c_, du, dC,
+                                  dmsg_out=dmsgs[t])
+        return lam, dmsgs, du, dC
+
+    monkeypatch.setattr(discrete_core, "discrete_iterate_bwd_steps",
+                        steps_via_transpose)
     ts = [_t(a).requires_grad_() for a in (p, u, w, c)]
     out = discrete_core.discrete_core(ts[0], ts[1], ts[2], _t(idx), ts[3],
                                       steps)
     got = torch.autograd.grad((out * _t(g)).sum(), ts)
+    assert calls == [steps]
     jp, ju, jw, ji, jc = map(jnp.asarray, (p, u, w, idx, c))
     ref = jax.vjp(lambda a, b_, c_, d: crf_pallas.discrete_crf_core(
         a, b_, c_, ji, d, steps, 64, 128, True), jp, ju, jw, jc)[1](

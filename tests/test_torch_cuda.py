@@ -3,7 +3,8 @@ edge shapes the main path does not reach: ragged tiles, indices outside
 their window (clamped rows that read zero), every template width of K3/K4
 and K5 (with riders of 13 to 128 channels), tiny clouds whose windows are
 mostly sentinel rows, and K > 16; the CRF cores' kernels (K9-K12, and the
-discrete K13/K14 at 1 to 50 classes) at B = 1, N = 1, 63, 65, duplicated
+discrete K13/K14 at 1 to 128 classes, every step of a call in one launch
+and one step at a time) at B = 1, N = 1, 63, 65, duplicated
 indices, all-masked rows and subnormal weights; the backward of the four
 autograd Functions (K1/K8, K7/K8, the continuous core K9-K12, the discrete
 core K9/K12-K14) against autograd through the plain versions; the
@@ -737,7 +738,7 @@ def test_discrete_iterate_bwd_deterministic(dev):
     msg = crf_core._message(q, w, col)
     du = torch.randn(b, n, l, device=dev)
     dC = torch.randn(l, l, device=dev)
-    plan = discrete_core.discrete_reverse_plan(col, c)
+    plan = discrete_core.discrete_reverse_plan(w, col, c)
     args = (lam, q, msg, w, col, c, du, dC)
     got = discrete_core.discrete_iterate_bwd(*args, plan=plan)
     again = discrete_core.discrete_iterate_bwd(*args, plan=plan)
@@ -754,7 +755,8 @@ def test_discrete_iterate_bwd_deterministic(dev):
 
 @pytest.mark.parametrize("b,n,l,k,spread,steps", [
     (1, 65, 13, 15, 300, 3), (2, 1000, 20, 31, 90, 10),
-    (1, 300, 50, 31, 60, 4),
+    (1, 300, 50, 31, 60, 4), (1, 200, 128, 8, 90, 2),
+    (2, 100, 1, 1, 40, 10), (1, 257, 32, 31, 600, 2),
 ])
 def test_discrete_core_backward_matches_plain_autograd(dev, b, n, l, k,
                                                        spread, steps):
@@ -780,6 +782,108 @@ def test_discrete_core_backward_matches_plain_autograd(dev, b, n, l, k,
         torch.testing.assert_close(a, r, rtol=1e-4,
                                    atol=1e-5 * float(r.abs().max()),
                                    msg=name)
+
+
+# (b, n, l, k, steps, spread): L 1 to 128, K 1 to 31, 1 to 10 steps, clouds
+# smaller than a window and not a multiple of 64, indices out of their
+# window (clamped, or outside the cloud: column -1)
+DISCRETE_STEPS_SHAPES = [
+    (1, 1, 1, 1, 1, 4), (2, 63, 5, 8, 2, 40), (1, 300, 20, 31, 10, 90),
+    (2, 1000, 20, 31, 10, 90), (1, 130, 32, 8, 2, 60),
+    (1, 200, 50, 31, 10, 60), (1, 65, 128, 31, 2, 300),
+    (1, 257, 128, 1, 10, 60), (2, 100, 20, 1, 1, 300),
+    (1, 500, 50, 8, 1, 600), (1, 319, 5, 31, 10, 600),
+]
+
+
+def _discrete_stack(dev, b, n, l, k, steps, spread, seed):
+    rng = np.random.default_rng(seed)
+    p, u, w, idx, c = _discrete_inputs(rng, b, n, l, k, spread, dev)
+    col = crf_core.crf_operator(idx)
+    qs = torch.empty((steps, b, n, l), device=dev)
+    msgs = torch.empty_like(qs)
+    q_last = discrete_core.discrete_iterate_steps(p, u, w, col, c, steps,
+                                                  qs=qs, msgs=msgs)
+    return p, u, w, col, c, qs, msgs, q_last
+
+
+@pytest.mark.parametrize("b,n,l,k,steps,spread", DISCRETE_STEPS_SHAPES)
+def test_discrete_iterate_steps_matches_plain(dev, b, n, l, k, steps, spread):
+    """K13 with every step in one launch: each msg_t bit-equal to the
+    message of the kernel's own q_t, q_t and q_steps within 2e-6 of the
+    plain loop's (expf may round apart from torch.exp), bit-equal to the
+    one-step kernel launched once a step and to the call without stacks."""
+    p, u, w, col, c, qs, msgs, q_last = _discrete_stack(
+        dev, b, n, l, k, steps, spread, 35)
+    ref_qs, ref_msgs = torch.empty_like(qs), torch.empty_like(msgs)
+    ref = discrete_core.discrete_iterate_steps_plain(
+        p, u, w, col, c, steps, ref_qs, ref_msgs)
+    for t in range(steps):
+        assert torch.equal(msgs[t], crf_core._message(qs[t], w, col))
+    scale = float(ref.abs().max())
+    assert float((q_last - ref).abs().max()) <= 2e-6 * scale
+    assert float((qs - ref_qs).abs().max()) <= 2e-6 * scale
+    torch.testing.assert_close(q_last.sum(-1), torch.ones(b, n, device=dev))
+    q = p
+    for t in range(steps):
+        assert torch.equal(q, qs[t])
+        m = torch.empty_like(q)
+        q = discrete_core.discrete_iterate(q, u, w, col, c, msg_out=m)
+        assert torch.equal(m, msgs[t])
+    assert torch.equal(q, q_last)
+    assert torch.equal(
+        discrete_core.discrete_iterate_steps(p, u, w, col, c, steps), q_last)
+
+
+@pytest.mark.parametrize("b,n,l,k,steps,spread", DISCRETE_STEPS_SHAPES)
+def test_discrete_iterate_bwd_steps_matches_cpu_plain(dev, b, n, l, k, steps,
+                                                      spread):
+    """K14 with every reverse step in one launch: lam_0, the dmsg stack and
+    du bit-equal to the plain version on CPU copies and to the one-step
+    kernel launched once a step over the same plan; every output
+    bit-identical on a rerun; dC within 1e-4 of its mass; the plan's rows
+    are S~^T by rows (``transpose_plain``) with w[m, k] and m per term."""
+    p, u, w, col, c, qs, msgs, q_last = _discrete_stack(
+        dev, b, n, l, k, steps, spread, 36)
+    g = torch.randn(b, n, l, device=dev)
+    plan = discrete_core.discrete_reverse_plan(w, col, c)
+    offsets, slots = crf_core.transpose_plain(col.cpu())
+    assert torch.equal(plan.row_ptr.cpu().long(), offsets)
+    terms = plan.terms[:slots.numel()].cpu()
+    assert torch.equal(terms[:, 1].long(), (slots // k) % n)
+    assert torch.equal(terms[:, 0].view(torch.float32),
+                       w.cpu().reshape(-1)[slots])
+    args = (g, qs, q_last, msgs, w, col, c)
+    got = discrete_core.discrete_iterate_bwd_steps(*args, plan=plan)
+    again = discrete_core.discrete_iterate_bwd_steps(*args, plan=plan)
+    for a, r in zip(got, again):
+        assert torch.equal(a, r)
+    cpu = discrete_core.discrete_iterate_bwd_steps_plain(
+        *[t.cpu() for t in args])
+    for name, a, r in zip(("dp", "dmsgs", "du"), got[:3], cpu[:3]):
+        assert torch.equal(a.cpu(), r), name
+    lam, du, dC = g, torch.zeros_like(g), torch.zeros_like(c)
+    for t in reversed(range(steps)):
+        qn = q_last if t == steps - 1 else qs[t + 1]
+        lam, dmsg, du, dC = discrete_core.discrete_iterate_bwd(
+            lam, qn, msgs[t], w, col, c, du, dC, plan=plan)
+        assert torch.equal(dmsg, got[1][t])
+    assert torch.equal(lam, got[0]) and torch.equal(du, got[2])
+    # dC: every row's and step's products in another order than the plain
+    # chain, against the mass of its terms
+    mass = torch.zeros(l, l, dtype=torch.float64)
+    lam = g.cpu().double()
+    for t in reversed(range(steps)):
+        qn = (q_last if t == steps - 1 else qs[t + 1]).cpu().double()
+        dz = qn * (lam - (lam * qn).sum(-1, keepdim=True))
+        mass += msgs[t].cpu().double().abs().reshape(-1, l).T @ \
+            dz.abs().reshape(-1, l)
+        lam = discrete_core.discrete_iterate_bwd_plain(
+            lam, qn, msgs[t].cpu().double(), w.cpu().double(), col.cpu(),
+            c.cpu().double(), torch.zeros_like(lam),
+            torch.zeros(l, l, dtype=torch.float64))[0]
+    err = (got[3].cpu().double() - cpu[3].double()).abs()
+    assert bool((err <= 1e-4 * mass + 1e-6 * float(mass.max())).all())
 
 
 def test_discrete_kernels_raise_under_grad(dev):

@@ -174,22 +174,23 @@ def test_backward_matches_autograd_f64():
 ])
 def test_core_saves_only_for_a_gradient(context, grad, monkeypatch):
     """With C a parameter (it needs a gradient in any grad mode), the core
-    writes each step's message for the backward only when grad mode is on:
-    serving runs under inference_mode and keeps no stacks."""
-    msg_outs = []
-    iterate = discrete_core.discrete_iterate
+    writes the q and message stacks for the backward only when grad mode is
+    on: serving runs under inference_mode and keeps no stacks. Its one call
+    of the steps entry runs all 3 steps."""
+    stacks = []
+    iterate = discrete_core.discrete_iterate_steps
 
     def spy(*a, **kw):
-        msg_outs.append(kw.get("msg_out"))
+        stacks.append((a[5], kw.get("qs"), kw.get("msgs")))
         return iterate(*a, **kw)
 
-    monkeypatch.setattr(discrete_core, "discrete_iterate", spy)
+    monkeypatch.setattr(discrete_core, "discrete_iterate_steps", spy)
     p, u, w, idx, c = _inputs(1, 64, 5, 7, seed=2)
     C = torch.nn.Parameter(_t(c))
     with context():
         q = discrete_core.discrete_core(_t(p), _t(u), _t(w), _t(idx), C, 3)
-    assert len(msg_outs) == 3
-    assert all((m is not None) == grad for m in msg_outs)
+    assert len(stacks) == 1 and stacks[0][0] == 3
+    assert all((m is not None) == grad for m in stacks[0][1:])
     assert q.requires_grad == grad
 
 
