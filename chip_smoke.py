@@ -11,9 +11,12 @@
    times both (CUDA events, median of 20 runs after warm-up) beside the
    call's bound and, where one PyTorch call computes the same function,
    that call's time; the kernel's and that call's device time (the sum of
-   their kernels in torch.profiler) and the wrapper's host time a call
-   (no synchronisation), split for K1 into the wrapper, Kernel.__call__
-   and the bare ctypes call.
+   their kernels in torch.profiler over five runs of the phase's calls,
+   divided by five; a phase fails where the profile holds fewer launches of
+   the kernel's own device functions than calls) and the wrapper's host
+   time a call (no synchronisation), split for K1 into the wrapper,
+   Kernel.__call__ and the bare ctypes call. K3, K5, K10 and K12 are also
+   timed per group of calls of one width (K5's by M, H and R).
 4. Main path: resets the launch counts, serves REQUESTS requests of
    B8 x 8192 points (S3DIS shape) through Predictor with the full-width
    PointConvResNet(13 classes, use_crf, steps=1) and seeded random
@@ -115,6 +118,7 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -134,6 +138,7 @@ SEED = 0
 DEVICE = "cuda:0"
 PEAK_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
 PEAK_F32_OPS_PER_S = 67e12     # H100 SXM float32, outside the tensor cores
+PROFILE_REPS = 5    # runs of a phase profiled together, its device ms / 5
 # launches of each kernel per B8 x 8192 request (pyramid + forward)
 EXPECTED_PER_REQUEST = {
     "windowed_gather": 15,
@@ -863,7 +868,7 @@ def plan_ms(name, calls) -> dict:
         return [build(*a) for build, a in jobs]
 
     return {"plans": len(jobs), "ms": median_ms(run),
-            "device_ms": device_ms(run, 5 if len(jobs) == 1 else 1)[0],
+            "device_ms": device_ms(run, PROFILE_REPS)[0],
             "host_us": host_us(run, len(jobs))}
 
 
@@ -891,14 +896,51 @@ def library_call(name, args):
     return None
 
 
-def device_ms(fn, reps: int = 1):
+def device_ms(fn, reps: int = PROFILE_REPS):
     """Device time of one call of ``fn``: the sum of every CUDA kernel,
-    copy and fill it ran (torch.profiler), and those by name, over ``reps``
-    calls profiled together, divided by ``reps`` (the profiler misses a
-    single short call)."""
+    copy and fill it ran (torch.profiler), and those by name with their
+    launches, over ``reps`` calls profiled together, divided by ``reps``
+    (the profiler misses a single short call, and counted one of K5's two
+    calls in a phase profiled once)."""
     rows = profile_device(lambda: [fn() for _ in range(reps)])
     return (sum(r[1] for r in rows) / reps,
-            [(k[:60], ms / reps, n / reps) for k, ms, n in rows])
+            [(k, ms / reps, n / reps) for k, ms, n in rows])
+
+
+def kernel_functions(name) -> tuple:
+    """The __global__ functions of a kernel's source and of the csrc/
+    headers it includes: the device functions its launches run."""
+    csrc = os.path.join(HERE, "crfconv_tpu_torch", "csrc")
+    seen, todo, names = set(), [kernel_source(name)], set()
+    while todo:
+        f = todo.pop()
+        if f in seen or not os.path.exists(os.path.join(csrc, f)):
+            continue
+        seen.add(f)
+        with open(os.path.join(csrc, f)) as fh:
+            text = fh.read()
+        names.update(re.findall(
+            r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s*)?(\w+)",
+            text))
+        todo += re.findall(r'#include\s+"([^"]+)"', text)
+    return tuple(sorted(names))
+
+
+def profiled_launches(rows, functions) -> float:
+    """Launches a run of ``functions`` in profiler rows (name, ms, launches
+    a run); copies, fills and PyTorch's own kernels do not count."""
+    pat = re.compile(r"\b(?:" + "|".join(map(re.escape, functions)) + r")\b")
+    return sum(n for key, _, n in rows if pat.search(key))
+
+
+def check_profiled_launches(label, rows, functions, calls) -> float:
+    """Fail the run where the profiler recorded fewer launches of the
+    kernel's own device functions than the phase made calls (a kernel that
+    launches several functions a call passes with more)."""
+    got = profiled_launches(rows, functions)
+    expect(got >= calls, f"{label}: the profiler recorded {got:g} launches "
+           f"of {', '.join(functions)} a run, fewer than its {calls} calls")
+    return got
 
 
 def host_us(fn, calls: int, runs: int = 5) -> float:
@@ -939,19 +981,36 @@ def host_split_us(kernel, calls) -> dict:
     return split
 
 
+# the kernels timed per group of calls: the group's key and label, and the
+# output rows of a call
+WIDTHS = {
+    "crf_iterate": (lambda a: a[0].shape[-1], lambda key: f"H {key}",
+                    lambda a: a[0].shape[-3] * a[0].shape[-2]),
+    "crf_neighbor_dot": (lambda a: a[1].shape[-1], lambda key: f"H {key}",
+                         lambda a: a[1].shape[-3] * a[1].shape[-2]),
+    "point_conv_fused_infer": (lambda a: a[0].shape[-1],
+                               lambda key: f"H {key}",
+                               lambda a: a[0].shape[0] * a[0].shape[1]),
+    "point_conv_fused_strided": (
+        lambda a: (a[3].shape[1], a[0].shape[2], a[4].shape[2]),
+        lambda key: f"M {key[0]} H {key[1]} R {key[2]}",
+        lambda a: a[3].shape[0] * a[3].shape[1]),
+}
+
+
 def per_width(name, kernel, calls) -> list:
-    """K10's or K12's calls of one path grouped by state width (one group a
-    CRF layer): per group the calls, device and event ms, host us a call,
-    the bound and its ratio; for K10 also the sum of its steps' one-step
-    bounds (each step's x, zp, s, col and out moved once). The device time
-    is the profiler's over five runs of the group, over five: it misses a
-    single short call."""
-    at = 0 if name == "crf_iterate" else 1   # the state: z, or the xs stack
+    """K10's, K12's and K3's calls of one path grouped by width (one group a
+    layer width), K5's by (M, H, R): per group the calls, device and event
+    ms, host us a call, the bound and its ratio; for K10 also the sum of
+    its steps' one-step bounds (each step's x, zp, s, col and out moved
+    once). The device time is the profiler's over five runs of the group,
+    over five: it misses a single short call."""
+    key_of, label_of, rows_of = WIDTHS[name]
     groups = {}
     for a, k in calls:
-        groups.setdefault(a[at].shape[-1], []).append((a, k))
+        groups.setdefault(key_of(a), []).append((a, k))
     rows = []
-    for h, group in sorted(groups.items()):
+    for key, group in sorted(groups.items()):
         def run():
             for a, k in group:
                 kernel(*a, **k)
@@ -962,8 +1021,9 @@ def per_width(name, kernel, calls) -> list:
             if name == "crf_iterate":
                 one = bound_of(name, a[:5] + (1,), out[0])[0]
                 step_bound += one * a[5]
-        dev_ms = device_ms(lambda: [run() for _ in range(5)])[0] / 5
-        row = {"h": h, "rows": int(np.prod(group[0][0][at].shape[-3:-1])),
+        dev_ms = device_ms(run)[0]
+        row = {"h": key if isinstance(key, int) else key[1],
+               "group": label_of(key), "rows": int(rows_of(group[0][0])),
                "calls": len(group), "device_ms": dev_ms, "ms": median_ms(run),
                "host_us": host_us(run, len(group)), "bound_ms": bound,
                "of_bound": dev_ms / bound if bound and dev_ms else None}
@@ -1033,10 +1093,9 @@ def steps_vs_launches(name, calls) -> dict:
         expect(all(torch.equal(x, y) for x, y in zip(got, ref)),
                f"{name}: one launch a step differs from the fused call")
     r = {"launches_fused": len(calls), "launches_stepwise": sum(steps_of)}
-    reps = 5 if len(calls) == 1 else 1   # the profiler misses one call
     for label, fn in (("fused", fused), ("stepwise", stepwise),
                       ("stepwise_again", stepwise), ("fused_again", fused)):
-        r[f"{label}_device_ms"] = device_ms(fn, reps)[0]
+        r[f"{label}_device_ms"] = device_ms(fn)[0]
         r[f"{label}_ms"] = median_ms(fn)
     return r
 
@@ -1073,21 +1132,22 @@ def kernel_phase(name, kernel, plain, calls, path):
             kernel(*a, **k)
 
     ms = median_ms(run_kernel)
-    reps = 5 if len(calls) == 1 else 1   # the profiler misses one call
-    kernel_device_ms, device_kernels = device_ms(run_kernel, reps)
+    kernel_device_ms, device_kernels = device_ms(run_kernel)
+    functions = kernel_functions(name)
+    profiled = check_profiled_launches(f"{name} ({path})", device_kernels,
+                                       functions, len(calls))
     kernel_host_us = host_us(run_kernel, len(calls))
     plain_ms = median_ms(lambda: [plain(*a, **k) for a, k in calls])
     libs = [library_call(name, a) for a, _ in calls]
     library_ms = library_device_ms = None
     if all(libs):
         library_ms = median_ms(lambda: [f() for f in libs])
-        library_device_ms = device_ms(lambda: [f() for f in libs], reps)[0]
+        library_device_ms = device_ms(lambda: [f() for f in libs])[0]
     split = host_split_us(kernel, calls) if name == "windowed_gather" else None
     plans = (plan_ms(name, calls) if name in ("crf_iterate_bwd",
                                               "discrete_iterate_bwd")
              else None)
-    widths = (per_width(name, kernel, calls)
-              if name in ("crf_iterate", "crf_neighbor_dot") else None)
+    widths = per_width(name, kernel, calls) if name in WIDTHS else None
     barrier = (steps_vs_launches(name, calls)
                if (name, path) in (("crf_iterate", "scannet serve"),
                                    ("discrete_iterate", "discrete serve"),
@@ -1103,7 +1163,8 @@ def kernel_phase(name, kernel, plain, calls, path):
         "max_abs_ref": ref_max,
         "ms": ms,
         "device_ms": kernel_device_ms,
-        "device_kernels": device_kernels,
+        "device_kernels": [(k[:60], t, n) for k, t, n in device_kernels],
+        "profiled_launches": profiled,
         "host_us": kernel_host_us,
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
@@ -1321,7 +1382,8 @@ def run_phases(results: dict, path: str, sites, calls) -> None:
 
 
 def print_phase(r) -> None:
-    print(f"# {r['name']} ({r['path']}; {CARD}): {r['calls']} calls, kernel "
+    print(f"# {r['name']} ({r['path']}; {CARD}): {r['calls']} calls "
+          f"({r['profiled_launches']:g} launches a run profiled), kernel "
           f"{r['ms']:.4f} ms (device {r['device_ms']:.4f} ms, host "
           f"{r['host_us']:.1f} us a call), "
           f"plain {r['plain_ms']:.4f} ms, bound {r['bound_ms'] * 1e3:.2f} us "
@@ -1337,7 +1399,7 @@ def print_phase(r) -> None:
           + ("" if r["plan"] is None else
              f", plans built {r['plan']}"), flush=True)
     for w in r.get("widths") or ():
-        print(f"#   {r['name']} H {w['h']} ({w['rows']} rows, {w['calls']} "
+        print(f"#   {r['name']} {w['group']} ({w['rows']} rows, {w['calls']} "
               f"calls): device "
               + (f"{w['device_ms'] * 1e3:.1f} us" if w["device_ms"] else
                  "not measured")
@@ -2902,8 +2964,9 @@ def main() -> int:
         r["calls_per_run"] = phases[0]["calls"]
         r["phases"] = [
             {k: p[k] for k in ("path", "calls", "max_abs_err", "max_abs_ref",
-                               "ms", "device_ms", "host_us", "plain_ms",
-                               "bound_ms", "bound_by", "library_ms",
+                               "ms", "device_ms", "profiled_launches",
+                               "host_us", "plain_ms", "bound_ms", "bound_by",
+                               "library_ms",
                                "library_device_ms", "of_bound",
                                "host_split_us", "plan", "device_kernels",
                                "widths", "steps_vs_launches",

@@ -119,7 +119,7 @@ class Kernel:
         self._count(self._extra[symbol](packed), symbol)
 
 
-# K1, K2, K8 and K10-K14 take their arguments packed as int64s in one
+# K1, K2, K3, K5, K8 and K10-K14 take their arguments packed as int64s in one
 # bytes object (``struct.pack``): per call that costs the host a few
 # microseconds less than ctypes' conversion of a dozen arguments.
 WINDOWED_GATHER = Kernel(
@@ -132,7 +132,7 @@ WINDOW_KNN = Kernel(
 )
 POINT_CONV_FUSED_INFER = Kernel(
     "point_conv_fused_infer", "point_conv.cu", "point_conv_infer_f32",
-    [_P] * 11 + [_I] * 7 + [ctypes.c_float, _P],
+    [ctypes.c_char_p],
 )
 CRF_SIMILARITY_MESSAGE = Kernel(
     "crf_similarity_message", "crf_sim.cu", "crf_similarity_message_f32",
@@ -163,7 +163,7 @@ CRF_NEIGHBOR_DOT = Kernel(
 )
 POINT_CONV_FUSED_STRIDED = Kernel(
     "point_conv_fused_strided", "point_conv_strided.cu",
-    "point_conv_strided_f32", [_P] * 14 + [_I] * 9 + [ctypes.c_float, _P],
+    "point_conv_strided_f32", [ctypes.c_char_p],
 )
 DISCRETE_ITERATE = Kernel(
     "discrete_iterate", "discrete_iterate.cu", "discrete_iterate_f32",

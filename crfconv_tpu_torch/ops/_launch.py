@@ -8,6 +8,7 @@ fallback.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -60,6 +61,13 @@ def raw_stream(device: torch.device) -> int:
     """The current stream of ``device`` as the int a ctypes ``c_void_p``
     argument takes, without building a ``torch.cuda.Stream``."""
     return torch._C._cuda_getCurrentRawStream(device.index)
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``index``, for sizing
+    grids."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def launch_on(device: torch.device, kernel, *args) -> None:

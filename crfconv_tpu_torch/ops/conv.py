@@ -16,6 +16,10 @@ neighbours in the same pass.
 
 from __future__ import annotations
 
+import functools
+import struct
+
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -23,17 +27,22 @@ from crfconv_tpu_torch.cuda_build import (
     POINT_CONV_FUSED_INFER, POINT_CONV_FUSED_STRIDED,
 )
 from crfconv_tpu_torch.ops._launch import (
-    check, check_no_grad, on_cuda, ptr, stream,
+    check, check_no_grad, launch_on, on_cuda, raw_stream, sm_count,
 )
 from crfconv_tpu_torch.ops.windowed import (
-    PAD, TILE, _geometry, windowed_gather_plain,
+    PAD, TILE, _geometry, window_starts, windowed_gather_plain,
 )
+
+# K3's and K5's arguments: 26 int64s (pointers, sizes, the stream) and the
+# slope as a double (csrc/point_conv.cuh::point_conv_launch)
+_pack = struct.Struct("26qd").pack
 
 # Widest hidden width and smallest row count routed to the kernel, as in
 # the reference's dispatch (conv_pallas.FUSED_MAX_H, FUSED_MIN_ROWS).
 FUSED_MAX_H = 32
 FUSED_MIN_ROWS = 4096
 BN_EPS = 1e-5
+MAX_PASSES = 2     # most passes a K3/K5 block makes (block_passes)
 
 
 def fused_eligible(training: bool, hidden: int, n_rows: int,
@@ -66,6 +75,54 @@ def fold_bn(weight, scale, bias, mean, var, eps: float = BN_EPS):
     a, c) with bn(x W) = a * (x W) + c."""
     a = scale / torch.sqrt(var + eps)
     return weight.t().contiguous(), a, bias - mean * a
+
+
+def block_points(h: int, passes: int = 1) -> int:
+    """Output points of a K3/K5 block (csrc/point_conv.cuh::pc_points):
+    ``passes`` passes of 256 threads, four columns a thread at the padded
+    width 8, 16 or 32."""
+    hp = 8 if h <= 8 else (16 if h <= 16 else 32)
+    return 256 * 4 // hp * passes
+
+
+def block_passes(h: int, blocks_at_one: int, sms: int) -> int:
+    """Passes a K3/K5 block makes: more passes share one staging and one
+    setup among more points, where the grid stays at least two waves of
+    three blocks an SM."""
+    passes = 1
+    while passes < MAX_PASSES and blocks_at_one >= 2 * passes * 6 * sms:
+        passes *= 2
+    return passes
+
+
+@functools.lru_cache(maxsize=256)
+def stage_rows(m_out: int, n_src: int, h: int, passes: int = 1,
+               tile: int = TILE, pad: int = PAD) -> int:
+    """Most source rows a K3/K5 block stages: it owns
+    block_points(h, passes) consecutive output points and stages the rows
+    from the least to the greatest of their clamped indices, which lie
+    within the windows of its first and last tile."""
+    points = block_points(h, passes)
+    starts, width, _ = window_starts(m_out, n_src, tile, pad)
+    i0 = np.arange(0, m_out, points)
+    t0 = i0 // tile
+    t1 = (np.minimum(i0 + points, m_out) - 1) // tile
+    return int((starts[t1] - starts[t0] + width).max())
+
+
+def _launch(kernel, x, pos, ctr, idx, w0, a0, c0, w1, a1, c1, res,
+            out, res_out, b, n, m, k, h, r, tile, pad, slope):
+    starts, width, front = _geometry(m, n, tile, pad, x.device)
+    passes = block_passes(h, b * -(-m // block_points(h)),
+                          sm_count(x.device.index))
+    launch_on(x.device, kernel, _pack(
+        x.data_ptr(), pos.data_ptr(), ctr.data_ptr(), idx.data_ptr(),
+        starts.data_ptr(), w0.data_ptr(), a0.data_ptr(), c0.data_ptr(),
+        w1.data_ptr(), a1.data_ptr(), c1.data_ptr(),
+        0 if res is None else res.data_ptr(), out.data_ptr(),
+        0 if res_out is None else res_out.data_ptr(), b, n, m, k, h, r, tile,
+        width, front, passes, stage_rows(m, n, h, passes, tile, pad),
+        raw_stream(x.device), float(slope)))
 
 
 def _check_mlp(H, w0, a0, c0, w1, a1, c1):
@@ -101,14 +158,9 @@ def point_conv_fused_infer(
         )
     _check_mlp(H, w0, a0, c0, w1, a1, c1)
     K = idx.shape[2]
-    starts, width, front = _geometry(N, N, tile, pad, x.device)
     out = torch.empty_like(x)
-    with torch.cuda.device(x.device):
-        POINT_CONV_FUSED_INFER(
-            ptr(x), ptr(pos), ptr(idx), ptr(starts), ptr(w0), ptr(a0),
-            ptr(c0), ptr(w1), ptr(a1), ptr(c1), ptr(out), B, N, K, H, tile,
-            width, front, float(slope), stream(x.device),
-        )
+    _launch(POINT_CONV_FUSED_INFER, x, pos, pos, idx, w0, a0, c0, w1, a1, c1,
+            None, out, None, B, N, N, K, H, 0, tile, pad, slope)
     return out
 
 
@@ -156,16 +208,10 @@ def point_conv_fused_strided(
             f"{tuple(res.shape)}"
         )
     _check_mlp(H, w0, a0, c0, w1, a1, c1)
-    starts, width, front = _geometry(M, N, tile, pad, x.device)
     out = torch.empty((B, M, H), dtype=x.dtype, device=x.device)
     res_max = torch.empty((B, M, R), dtype=x.dtype, device=x.device)
-    with torch.cuda.device(x.device):
-        POINT_CONV_FUSED_STRIDED(
-            ptr(x), ptr(pos), ptr(sub_pos), ptr(idx), ptr(starts), ptr(w0),
-            ptr(a0), ptr(c0), ptr(w1), ptr(a1), ptr(c1), ptr(res), ptr(out),
-            ptr(res_max), B, N, M, K, H, R, tile, width, front, float(slope),
-            stream(x.device),
-        )
+    _launch(POINT_CONV_FUSED_STRIDED, x, pos, sub_pos, idx, w0, a0, c0, w1, a1,
+            c1, res, out, res_max, B, N, M, K, H, R, tile, pad, slope)
     return out, res_max
 
 

@@ -34,7 +34,6 @@ lam_t to the plain version run on the CPU).
 
 from __future__ import annotations
 
-import functools
 import struct
 
 import torch
@@ -43,7 +42,8 @@ from crfconv_tpu_torch.cuda_build import (
     CRF_ITERATE, CRF_ITERATE_BWD, CRF_NEIGHBOR_DOT, CRF_OPERATOR,
 )
 from crfconv_tpu_torch.ops._launch import (
-    check, check_no_grad, launch_on, on_cuda, ptr, raw_stream, stream,
+    check, check_no_grad, launch_on, on_cuda, ptr, raw_stream, sm_count,
+    stream,
 )
 from crfconv_tpu_torch.ops.windowed import (
     PAD, TILE, _clamped_rows, _geometry, window_starts,
@@ -475,13 +475,8 @@ def _neighbor_dot_splits(steps: int, blocks: int, device) -> int:
     """Blocks a row tile of K12 splits its steps over: enough for two
     blocks an SM where the clouds have few row tiles (the coarse scales),
     at most one a step."""
-    sms = _sm_count(device.index)
+    sms = sm_count(device.index)
     return max(1, min(steps, -(-2 * sms // max(blocks, 1))))
-
-
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def crf_neighbor_dot_plain(dmsgs, xs, col, tile=TILE, pad=PAD):

@@ -39,10 +39,10 @@ import torch
 
 from crfconv_tpu_torch.cuda_build import DISCRETE_ITERATE, DISCRETE_ITERATE_BWD
 from crfconv_tpu_torch.ops._launch import (
-    check, check_no_grad, launch_on, on_cuda, raw_stream,
+    check, check_no_grad, launch_on, on_cuda, raw_stream, sm_count,
 )
 from crfconv_tpu_torch.ops.crf_core import (
-    _aligned, _apply_rows, _check_operator, _message, _sm_count,
+    _aligned, _apply_rows, _check_operator, _message,
     crf_neighbor_dot, crf_operator, crf_operator_plain,
 )
 from crfconv_tpu_torch.ops.windowed import PAD, TILE, _geometry, window_starts
@@ -275,7 +275,7 @@ class DiscretePlan:
         self.tcap = self.rows * K + self.rows * K % 2
         items = B * -(-N // self.rows)
         # a block a item at most, at most 8 blocks of 256 threads an SM
-        parts = min(items, 8 * _sm_count(dev.index))
+        parts = min(items, 8 * sm_count(dev.index))
         self.part = torch.empty((parts, L, L), dtype=torch.float32,
                                 device=dev)
         # tile_inverse's order and runs, and a count a block of 256 rows

@@ -1,8 +1,10 @@
 """The fifteen CUDA kernels against their plain versions on the card, at
 edge shapes the main path does not reach: ragged tiles, indices outside
 their window (clamped rows that read zero), every template width of K3/K4
-and K5 (with riders of 13 to 128 channels), tiny clouds whose windows are
-mostly sentinel rows, and K > 16; the CRF cores' kernels (K9-K12, and the
+and K5 (with riders of 13 to 128 channels; Semantic3D's widths with rows
+clamped outside the cloud at both ends, rerun-identical; K up to 200 and
+pads up to 8000, where a block stages nothing), tiny clouds whose windows
+are mostly sentinel rows, and K > 16; the CRF cores' kernels (K9-K12, and the
 discrete K13/K14 at 1 to 128 classes, every step of a call in one launch
 and one step at a time) at B = 1, N = 1, 63, 65, duplicated
 indices, all-masked rows and subnormal weights; the backward of the four
@@ -151,6 +153,154 @@ def test_point_conv_matches_plain(dev, h, k):
     ref = conv.point_conv_fused_infer_plain(x, pos, idx, *w)
     # float32 sums over K and H in another order
     torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4)
+
+
+def _raw_idx(rng, b, m, n, k, spread, dev):
+    """Indices around each point's center, not clipped to [0, n): the first
+    and last tiles' clamps give rows outside the cloud, which read zero.
+    Slot 1 repeats slot 0 (duplicated neighbours)."""
+    centers = (np.arange(m) * (n / m)).astype(np.int64)
+    idx = centers[None, :, None] + rng.integers(-spread, spread, (b, m, k))
+    idx[:, :, 1] = idx[:, :, 0]
+    starts, width, front = windowed.window_starts(m, n)
+    lo = np.repeat(starts - front, 64)[:m][None, :, None]
+    rows = np.clip(idx, lo, lo + width - 1)
+    assert (rows < 0).any() and (rows >= n).any()   # both ends clamp out
+    return torch.as_tensor(idx.astype(np.int32), device=dev)
+
+
+def _mlp(h, dev, seed):
+    g = torch.Generator().manual_seed(seed)
+    return [torch.randn(s, generator=g).to(dev) for s in
+            ((3, h), (h,), (h,), (h, h), (h,), (h,))]
+
+
+@pytest.mark.parametrize("h", [8, 16, 32])
+def test_point_conv_semantic3d_widths(dev, h):
+    """Semantic3D's same-scale widths over 16 tiles (n = 1000, not a
+    multiple of 64, so the last block is ragged), rows clamped outside the
+    cloud at both ends: within the plain version's rounding, and a rerun
+    is bit-identical (one order of every sum, no atomics)."""
+    rng = np.random.default_rng(30 + h)
+    n, k = 1000, 16
+    pos = _sorted_cloud(rng, 2, n, dev)
+    x = torch.randn(2, n, h, device=dev)
+    idx = _raw_idx(rng, 2, n, n, k, 300, dev)
+    w = _mlp(h, dev, h)
+    got = conv.point_conv_fused_infer(x, pos, idx, *w)
+    ref = conv.point_conv_fused_infer_plain(x, pos, idx, *w)
+    torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4)
+    assert torch.equal(got, conv.point_conv_fused_infer(x, pos, idx, *w))
+
+
+@pytest.mark.parametrize("h,r", [(16, 64), (32, 128), (16, 30), (32, 13)])
+def test_point_conv_strided_semantic3d_widths(dev, h, r):
+    """K5 at stride 4 with Semantic3D's (H, R) pairs and ragged riders
+    (R % 4 != 0: one channel a thread), n = 4000 over m = 1000, rows
+    clamped outside the cloud at both ends: out within rounding, the
+    rider's max exact, both bit-identical on a rerun."""
+    rng = np.random.default_rng(40 + h + r)
+    n, m, k = 4000, 1000, 16
+    pos = _sorted_cloud(rng, 2, n, dev)
+    sub_pos = pos[:, ::4].contiguous()
+    x = torch.randn(2, n, h, device=dev)
+    res = torch.randn(2, n, r, device=dev)
+    idx = _raw_idx(rng, 2, m, n, k, 600, dev)
+    w = _mlp(h, dev, h + r)
+    got, got_r = conv.point_conv_fused_strided(x, pos, sub_pos, idx, res, *w)
+    ref, ref_r = conv.point_conv_fused_strided_plain(x, pos, sub_pos, idx,
+                                                     res, *w)
+    torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4)
+    assert torch.equal(got_r, ref_r)
+    again, again_r = conv.point_conv_fused_strided(x, pos, sub_pos, idx, res,
+                                                   *w)
+    assert torch.equal(got, again) and torch.equal(got_r, again_r)
+
+
+@pytest.mark.parametrize("passes", [1, 2])
+@pytest.mark.parametrize("h,k,r", [(16, 24, 0), (8, 32, 0), (32, 1, 0),
+                                   (8, 24, 12), (32, 32, 64), (16, 5, 30)])
+def test_point_conv_passes_and_k(dev, monkeypatch, h, k, r, passes):
+    """K3 (r = 0) and K5 at one and two passes a block and at K of 1 to
+    32, multiples of 4 and not, over ragged tiles, against the plain
+    version."""
+    monkeypatch.setattr(conv, "block_passes", lambda *_: passes)
+    rng = np.random.default_rng(50 + h + k + r)
+    n = 1000 if r == 0 else 4000
+    m = n if r == 0 else n // 4
+    pos = _sorted_cloud(rng, 2, n, dev)
+    x = torch.randn(2, n, h, device=dev)
+    idx = _raw_idx(rng, 2, m, n, k, 300, dev) if k > 1 else torch.as_tensor(
+        np.arange(m)[None, :, None].repeat(2, 0).astype(np.int32) * (n // m),
+        device=dev)
+    w = _mlp(h, dev, k)
+    if r == 0:
+        got = conv.point_conv_fused_infer(x, pos, idx, *w)
+        ref = conv.point_conv_fused_infer_plain(x, pos, idx, *w)
+    else:
+        sub_pos = pos[:, ::4].contiguous()
+        res = torch.randn(2, n, r, device=dev)
+        got, got_r = conv.point_conv_fused_strided(x, pos, sub_pos, idx, res,
+                                                   *w)
+        ref, ref_r = conv.point_conv_fused_strided_plain(x, pos, sub_pos, idx,
+                                                         res, *w)
+        assert torch.equal(got_r, ref_r)
+    torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4)
+
+
+def _pc_staged(h, cap, k, passes):
+    """Whether a K3/K5 block stages its rows: its shared memory
+    (csrc/point_conv.cuh::pc_smem_bytes) within the 231,424 bytes a block
+    may ask for."""
+    hp = 8 if h <= 8 else (16 if h <= 16 else 32)
+    points = 1024 // hp * passes
+    floats = hp * hp + 5 * hp + 8 * 512 + cap * (12 if hp == 8 else 4)
+    return 4 * (floats + (points + 1) * k + points) <= 231424
+
+
+@pytest.mark.parametrize("h,k,r,pad,passes,n,staged", [
+    (8, 200, 0, 128, 2, 1000, False),    # the [k][points + 1] table
+    (8, 200, 0, 128, 1, 1000, True),
+    (8, 200, 13, 128, 2, 4000, False),
+    (32, 200, 128, 128, 2, 4000, True),
+    (8, 16, 0, 1200, 2, 4000, True),     # the staged window
+    (8, 16, 13, 2400, 2, 16000, False),
+    (16, 16, 64, 8000, 1, 40000, False),
+])
+def test_point_conv_large_k_and_pad(dev, monkeypatch, h, k, r, pad, passes,
+                                    n, staged):
+    """K3 (r = 0) and K5 at stride 4 where the block's table of clamped
+    rows or its staged window outgrows shared memory (a block then stages
+    nothing and reads its rows from L2) and just inside it: against the
+    plain version, the rider exact, out rerun-identical."""
+    monkeypatch.setattr(conv, "block_passes", lambda *_: passes)
+    m = n if r == 0 else n // 4
+    assert _pc_staged(h, conv.stage_rows(m, n, h, passes, 64, pad), k,
+                      passes) == staged
+    rng = np.random.default_rng(60 + h + k + r)
+    pos = _sorted_cloud(rng, 1, n, dev)
+    x = torch.randn(1, n, h, device=dev)
+    idx = torch.as_tensor(
+        (np.arange(m) * (n // m))[None, :, None]
+        + rng.integers(-pad, pad, (1, m, k)), dtype=torch.int32, device=dev)
+    w = _mlp(h, dev, k + pad)
+    if r == 0:
+        def run(fn):
+            return (fn(x, pos, idx, *w, pad=pad),)
+        got, ref = (run(conv.point_conv_fused_infer),
+                    run(conv.point_conv_fused_infer_plain))
+    else:
+        sub_pos = pos[:, ::4].contiguous()
+        res = torch.randn(1, n, r, device=dev)
+
+        def run(fn):
+            return fn(x, pos, sub_pos, idx, res, *w, pad=pad)
+        got, ref = (run(conv.point_conv_fused_strided),
+                    run(conv.point_conv_fused_strided_plain))
+        assert torch.equal(got[1], ref[1])
+    torch.testing.assert_close(got[0], ref[0], rtol=1e-4, atol=1e-4)
+    assert torch.equal(got[0], run(conv.point_conv_fused_infer if r == 0
+                                   else conv.point_conv_fused_strided)[0])
 
 
 @pytest.mark.parametrize("h,k", [(4, 15), (8, 15), (20, 7), (32, 15)])
