@@ -646,6 +646,13 @@ def compare(name, args, got, ref):
         # one clamp; one comparison
         expect(torch.equal(got, ref), f"{name}: not bit-equal")
         return float((got - ref).abs().max()) if got.numel() else 0.0
+    if name == "crf_similarity_message":
+        # one order of every sum, no atomics: a rerun is bit-identical
+        from crfconv_tpu_torch.ops.crf_sim import crf_similarity_message
+        again = crf_similarity_message(*args)
+        expect(torch.equal(got[0], again[0]) and torch.equal(got[1],
+                                                             again[1]),
+               f"{name}: a rerun is not bit-identical")
     if name == "crf_iterate_bwd":
         from crfconv_tpu_torch.ops.crf_core import _message
         lam, x, s_, col, m = args[:5]
@@ -995,12 +1002,22 @@ WIDTHS = {
         lambda a: (a[3].shape[1], a[0].shape[2], a[4].shape[2]),
         lambda key: f"M {key[0]} H {key[1]} R {key[2]}",
         lambda a: a[3].shape[0] * a[3].shape[1]),
+    # K4 by (rows, H), K9 by (rows, K): one group a call shape
+    "crf_similarity_message": (
+        lambda a: (a[0].shape[0] * a[0].shape[1], a[0].shape[2]),
+        lambda key: f"rows {key[0]} H {key[1]}",
+        lambda a: a[0].shape[0] * a[0].shape[1]),
+    "crf_operator": (
+        lambda a: (a[0].shape[0] * a[0].shape[1], a[0].shape[2]),
+        lambda key: f"rows {key[0]} K {key[1]}",
+        lambda a: a[0].shape[0] * a[0].shape[1]),
 }
 
 
 def per_width(name, kernel, calls) -> list:
     """K10's, K12's and K3's calls of one path grouped by width (one group a
-    layer width), K5's by (M, H, R): per group the calls, device and event
+    layer width), K5's by (M, H, R), K4's by (rows, H), K9's by (rows, K):
+    per group the calls, device and event
     ms, host us a call, the bound and its ratio; for K10 also the sum of
     its steps' one-step bounds (each step's x, zp, s, col and out moved
     once). The device time is the profiler's over five runs of the group,
@@ -1022,7 +1039,8 @@ def per_width(name, kernel, calls) -> list:
                 one = bound_of(name, a[:5] + (1,), out[0])[0]
                 step_bound += one * a[5]
         dev_ms = device_ms(run)[0]
-        row = {"h": key if isinstance(key, int) else key[1],
+        row = {"h": (key if isinstance(key, int) else
+                     None if name == "crf_operator" else key[1]),
                "group": label_of(key), "rows": int(rows_of(group[0][0])),
                "calls": len(group), "device_ms": dev_ms, "ms": median_ms(run),
                "host_us": host_us(run, len(group)), "bound_ms": bound,

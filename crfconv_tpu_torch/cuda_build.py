@@ -119,9 +119,9 @@ class Kernel:
         self._count(self._extra[symbol](packed), symbol)
 
 
-# K1, K2, K3, K5, K8 and K10-K14 take their arguments packed as int64s in one
-# bytes object (``struct.pack``): per call that costs the host a few
-# microseconds less than ctypes' conversion of a dozen arguments.
+# K1-K5 and K8-K14 take their arguments packed as int64s in one bytes object
+# (``struct.pack``): per call that costs the host a few microseconds less
+# than ctypes' conversion of a dozen arguments.
 WINDOWED_GATHER = Kernel(
     "windowed_gather", "windowed_gather.cu", "windowed_gather_f32",
     [ctypes.c_char_p],
@@ -136,7 +136,7 @@ POINT_CONV_FUSED_INFER = Kernel(
 )
 CRF_SIMILARITY_MESSAGE = Kernel(
     "crf_similarity_message", "crf_sim.cu", "crf_similarity_message_f32",
-    [_P] * 6 + [_I] * 7 + [_P],
+    [ctypes.c_char_p],
 )
 WINDOWED_WEIGHTED_REDUCE = Kernel(
     "windowed_weighted_reduce", "windowed_weighted_reduce.cu",
@@ -147,8 +147,7 @@ WINDOWED_GATHER_BWD = Kernel(
     [ctypes.c_char_p],
 )
 CRF_OPERATOR = Kernel(
-    "crf_operator", "crf_operator.cu", "crf_operator_i32",
-    [_P] * 3 + [_I] * 6 + [_P],
+    "crf_operator", "crf_operator.cu", "crf_operator_i32", [ctypes.c_char_p],
 )
 CRF_ITERATE = Kernel(
     "crf_iterate", "crf_iterate.cu", "crf_iterate_f32", [ctypes.c_char_p],

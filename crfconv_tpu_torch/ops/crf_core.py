@@ -42,8 +42,7 @@ from crfconv_tpu_torch.cuda_build import (
     CRF_ITERATE, CRF_ITERATE_BWD, CRF_NEIGHBOR_DOT, CRF_OPERATOR,
 )
 from crfconv_tpu_torch.ops._launch import (
-    check, check_no_grad, launch_on, on_cuda, ptr, raw_stream, sm_count,
-    stream,
+    check, check_no_grad, launch_on, on_cuda, raw_stream, sm_count,
 )
 from crfconv_tpu_torch.ops.windowed import (
     PAD, TILE, _clamped_rows, _geometry, window_starts,
@@ -51,6 +50,7 @@ from crfconv_tpu_torch.ops.windowed import (
 
 MAX_H = 1024   # widest state the iterate kernels take
 # the kernels' arguments, packed as int64s (cuda_build)
+_pack10 = struct.Struct("10q").pack
 _pack11 = struct.Struct("11q").pack
 _pack15 = struct.Struct("15q").pack
 _pack16 = struct.Struct("16q").pack
@@ -92,11 +92,12 @@ def crf_operator(
         return crf_operator_plain(idx, tile, pad)
     check(idx, "idx", torch.int32, 3)
     B, N, K = idx.shape
-    starts, width, front = _geometry(N, N, tile, pad, idx.device)
+    dev = idx.device
+    starts, width, front = _geometry(N, N, tile, pad, dev)
     col = torch.empty_like(idx)
-    with torch.cuda.device(idx.device):
-        CRF_OPERATOR(ptr(idx), ptr(starts), ptr(col), B, N, K, tile, width,
-                     front, stream(idx.device))
+    launch_on(dev, CRF_OPERATOR, _pack10(
+        idx.data_ptr(), starts.data_ptr(), col.data_ptr(), B, N, K, tile,
+        width, front, raw_stream(dev)))
     return col
 
 

@@ -8,11 +8,13 @@ the caller finishes with x = (z + msg C)(I + C)^-1.
 
 from __future__ import annotations
 
+import struct
+
 import torch
 
 from crfconv_tpu_torch.cuda_build import CRF_SIMILARITY_MESSAGE
 from crfconv_tpu_torch.ops._launch import (
-    check, check_no_grad, on_cuda, ptr, stream,
+    check, check_no_grad, launch_on, on_cuda, raw_stream,
 )
 from crfconv_tpu_torch.ops.windowed import (
     PAD, TILE, _geometry, windowed_gather_plain,
@@ -21,6 +23,8 @@ from crfconv_tpu_torch.ops.windowed import (
 # As the reference's dispatch (crf_sim_pallas.SIM_MAX_H, SIM_MIN_ROWS).
 SIM_MAX_H = 32
 SIM_MIN_ROWS = 4096
+# K4's arguments, packed as int64s (csrc/crf_sim.cu)
+_pack = struct.Struct("14q").pack
 
 
 def sim_eligible(training: bool, hidden: int, n_rows: int,
@@ -51,14 +55,14 @@ def crf_similarity_message(
     if H > SIM_MAX_H:
         raise ValueError(f"hidden width {H} > {SIM_MAX_H}")
     K = idx.shape[2]
-    starts, width, front = _geometry(N, N, tile, pad, y.device)
-    s = torch.empty((B, N, K), dtype=y.dtype, device=y.device)
+    dev = y.device
+    starts, width, front = _geometry(N, N, tile, pad, dev)
+    s = torch.empty((B, N, K), dtype=y.dtype, device=dev)
     msg = torch.empty_like(z)
-    with torch.cuda.device(y.device):
-        CRF_SIMILARITY_MESSAGE(
-            ptr(y), ptr(z), ptr(idx), ptr(starts), ptr(s), ptr(msg), B, N, K,
-            H, tile, width, front, stream(y.device),
-        )
+    launch_on(dev, CRF_SIMILARITY_MESSAGE, _pack(
+        y.data_ptr(), z.data_ptr(), idx.data_ptr(), starts.data_ptr(),
+        s.data_ptr(), msg.data_ptr(), B, N, K, H, tile, width, front,
+        raw_stream(dev)))
     return msg, s
 
 

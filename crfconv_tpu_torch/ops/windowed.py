@@ -72,7 +72,11 @@ def _pad_src(x: torch.Tensor, front: int, width: int, starts, value=0.0):
 
 @functools.lru_cache(maxsize=256)
 def _geometry(m_out: int, n_src: int, tile: int, pad: int, device):
-    """(int32 starts on ``device``, width, front), cached per shape."""
+    """(int32 starts on ``device``, width, front), cached per (m_out, n_src,
+    tile, pad, device): only a shape's first call runs ``window_starts``
+    and copies the starts to the device; every later call returns the same
+    tensor, which no caller writes. ``device`` is a tensor's device, so the
+    CPU and each CUDA device (by its index) have entries of their own."""
     starts, width, front = window_starts(m_out, n_src, tile, pad)
     return torch.as_tensor(starts.astype(np.int32), device=device), width, front
 

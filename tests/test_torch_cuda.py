@@ -22,7 +22,11 @@ lam_t in slot order over a transpose built once per backward call: lam_t
 is bit-equal to the plain version on CPU copies and every output to itself
 on a rerun (H 3 to 1024); K2 is bit-equal to its plain version at k = 1 to
 33 and k = the window's width, exact and packed, same-scale and bipartite,
-on 512- and 128-wide windows with duplicated points.
+on 512- and 128-wide windows with duplicated points. K4 runs every width
+from 1 to 32, K from 1 to 300 (at 300 without its shared table) and pads
+to 8000, rows off 16-byte alignment, within rtol 1e-4, atol 1e-5 and
+rerun-identical; K9 is bit-equal at K 1 to 33 on aligned and
+unaligned slabs.
 
 Needs an NVIDIA GPU and nvcc; skipped otherwise. On the card run
 
@@ -34,10 +38,13 @@ need not have).
 
 from __future__ import annotations
 
+import ctypes
+
 import numpy as np
 import pytest
 import torch
 
+from crfconv_tpu_torch import cuda_build
 from crfconv_tpu_torch.ops import (
     conv, crf_core, crf_sim, discrete_core, neighbors, windowed,
 )
@@ -317,6 +324,110 @@ def test_crf_similarity_matches_plain(dev, h, k):
     # and msg absolutely
     torch.testing.assert_close(s, s_ref, rtol=1e-4, atol=1e-6)
     torch.testing.assert_close(msg, msg_ref, rtol=1e-4, atol=1e-4)
+
+
+def _sim_table_max_k():
+    """The largest K at which a K4 launch keeps its table and distance
+    buffer in shared memory (csrc/crf_sim.cu::SIM_TABLE_MAX_K), as its
+    library reports it; above it K4 takes the direct route."""
+    kernel = cuda_build.CRF_SIMILARITY_MESSAGE
+    cuda_build.build([kernel])
+    return ctypes.CDLL(str(kernel.library_path())).crf_similarity_table_max_k()
+
+
+def _check_sim(y, z, idx, pad=128):
+    """K4 against its plain version within rtol 1e-4, atol 1e-5 on msg and
+    s (|y_i - y_j|^2 summed over H in another order), and bit-identical on
+    a rerun (one order of every sum, no atomics)."""
+    msg, s = crf_sim.crf_similarity_message(y, z, idx, pad=pad)
+    msg_ref, s_ref = crf_sim.crf_similarity_message_plain(y, z, idx, pad=pad)
+    torch.testing.assert_close(s, s_ref, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(msg, msg_ref, rtol=1e-4, atol=1e-5)
+    msg2, s2 = crf_sim.crf_similarity_message(y, z, idx, pad=pad)
+    assert torch.equal(msg, msg2) and torch.equal(s, s2)
+
+
+@pytest.mark.parametrize("h", [1, 5, 8, 12, 16, 24, 32])
+def test_crf_similarity_every_width(dev, h):
+    """Every width to 32, n = 1100 (a ragged last tile and a ragged last
+    block), indices outside their windows and rows clamped outside the
+    cloud at both ends (they read zero y and z)."""
+    rng = np.random.default_rng(70 + h)
+    n, k = 1100, 15
+    y = torch.randn(2, n, h, device=dev)
+    z = torch.randn(2, n, h, device=dev)
+    _check_sim(y, z, _raw_idx(rng, 2, n, n, k, 300, dev))
+
+
+@pytest.mark.parametrize("h", [8, 32])
+@pytest.mark.parametrize("k", [1, 7, 15, 31, 200, 300])
+def test_crf_similarity_every_k(dev, h, k):
+    """K from 1 to 300: up to K 200 the table and distance buffer fit
+    shared memory, at K 300 they do not (the direct route)."""
+    assert (k <= _sim_table_max_k()) == (k <= 200)
+    n = 1000
+    rng = np.random.default_rng(80 + h + k)
+    y = torch.randn(1, n, h, device=dev)
+    z = torch.randn(1, n, h, device=dev)
+    idx = torch.as_tensor(
+        np.arange(n)[None, :, None] + rng.integers(-250, 250, (1, n, k)),
+        dtype=torch.int32, device=dev)
+    _check_sim(y, z, idx)
+
+
+@pytest.mark.parametrize("pad,n", [(1000, 4000), (1200, 4000), (8000, 40000)])
+@pytest.mark.parametrize("h", [8, 16])
+def test_crf_similarity_large_pad(dev, h, pad, n):
+    """Pads whose windows span thousands of rows, indices across them."""
+    rng = np.random.default_rng(90 + h + pad)
+    y = torch.randn(1, n, h, device=dev)
+    z = torch.randn(1, n, h, device=dev)
+    idx = torch.as_tensor(
+        np.arange(n)[None, :, None] + rng.integers(-pad, pad, (1, n, 15)),
+        dtype=torch.int32, device=dev)
+    _check_sim(y, z, idx, pad)
+
+
+@pytest.mark.parametrize("n", [1, 63, 65, 4096])
+def test_crf_similarity_small_and_unaligned(dev, n):
+    """Clouds of one row to a few tiles, and y, z, msg rows off 16-byte
+    alignment (slices one float in: the scalar loads and copies)."""
+    rng = np.random.default_rng(100 + n)
+    idx = torch.as_tensor(
+        np.arange(n)[None, :, None] + rng.integers(-40, 40, (2, n, 15)),
+        dtype=torch.int32, device=dev)
+    for h in (8, 16, 32):
+        buf = torch.randn(2 * (2 * n * h + 1), device=dev)
+        y = buf[1:2 * n * h + 1].view(2, n, h)
+        z = buf[2 * n * h + 2:].view(2, n, h)
+        assert y.data_ptr() % 16 and z.data_ptr() % 16
+        _check_sim(y, z, idx)
+        _check_sim(y.clone(), z.clone(), idx)
+
+
+@pytest.mark.parametrize("k", [1, 15, 31, 33])
+@pytest.mark.parametrize("b,n,tile,pad", [
+    (2, 50, 64, 128),      # below a tile
+    (1, 1024, 64, 128),    # at a multiple of it
+    (2, 1100, 64, 128),    # off a multiple
+    (3, 1000, 32, 64),     # another tile and pad
+])
+def test_crf_operator_bit_equal(dev, b, n, k, tile, pad):
+    """K9 bit-equal to its plain version, indices in and out of their
+    windows (clamped rows outside the cloud give -1), on a 16-byte-aligned
+    slab and on one a word off (scalar head and tail)."""
+    rng = np.random.default_rng(110 + n + k)
+    raw = (np.arange(n)[None, :, None] * 1
+           + rng.integers(-400, 400, (b, n, k))).astype(np.int32)
+    idx = torch.as_tensor(raw, device=dev)
+    col = crf_core.crf_operator(idx, tile, pad)
+    assert torch.equal(col, crf_core.crf_operator_plain(idx, tile, pad))
+    assert (col == -1).any() and (col >= 0).any()
+    buf = torch.empty(raw.size + 1, dtype=torch.int32, device=dev)
+    off = buf[1:].view(b, n, k)
+    off.copy_(idx)
+    assert off.data_ptr() % 16
+    assert torch.equal(crf_core.crf_operator(off, tile, pad), col)
 
 
 @pytest.mark.parametrize(

@@ -123,7 +123,7 @@ def test_point_conv_vs_pallas(h, k):
     np.testing.assert_allclose(got, ref, rtol=2e-4, atol=2e-5)
 
 
-@pytest.mark.parametrize("h,k", [(8, 15), (16, 7)])
+@pytest.mark.parametrize("h,k", [(8, 15), (16, 7), (1, 15), (5, 1), (32, 31), (1, 31), (32, 1)])
 def test_crf_similarity_vs_pallas(h, k):
     rng = np.random.default_rng(5)
     n = 1024
