@@ -106,6 +106,40 @@
     DISCRETE_REQUESTS requests with K6 11 launches each (10 pyramid + the
     CRF's kNN(32)) and no other kernel; a kernel-vs-plain forward; times,
     a profile and peak memory.
+20. ShapeNet serving (ShapeNetConfig: CRFSegNet_Part(50 classes,
+    steps=10), B16 x 2048, 6 input channels, categories seeded in [0, 16),
+    build_pyramid_windowed's defaults as the reference bench builds them):
+    a recorded warm-up request (K1, K2, K9, K10 held against their plain
+    versions; the coarsest CRF runs on 32 rows a cloud at width 256),
+    SCANNET_REQUESTS requests through Predictor with the category, exact
+    launch counts, finite normalised log-probabilities and their part IoU,
+    a bit-equal kernel-vs-plain forward, a profile and peak memory.
+21. ShapeNet training at B8 (SGD lr 0.01): a recorded warm-up step (K1,
+    K2, K8, K9-K12, the leaky ReLU's backward), TRAIN_STEPS steps, a
+    kernel-vs-plain step and a rerun bit-identical, as in 10-13; one more
+    step with curve_jitter: its pyramid window-consistent at every scale,
+    its loss finite, a rerun from the same seed bit-identical.
+22. SemanticKITTI serving (SemanticKITTIConfig: PointConvResNet(19
+    classes, 4 input channels, use_crf, steps=1), B8 x 65536 through
+    Predictor), as Semantic3D's in 15, K1-K5 held on every recorded call.
+23. SemanticKITTI training at B8 x 65536 (dropout 0.5, SGD lr 0.01,
+    label_offset 1): a recorded warm-up step (K1, K2, K7 on four layers,
+    K8, the leaky ReLU's backward), TRAIN_STEPS steps with exact launch
+    counts, a kernel-vs-plain step and a rerun bit-identical.
+24. ScanNet exact serving (CRFSegNet(20 classes, steps=10), B16 x 8192,
+    build_pyramid_device with ScanNet's kernel sizes, ratios and k_up 3):
+    K6 held bit-equal on every recorded call, K6 10 launches a request, the
+    CRFs' scans in plain PyTorch; as in 19.
+25. ScanNet exact training: each step builds its pyramid (K6 10 launches)
+    and trains on it (the scans differentiated by autograd, the leaky
+    ReLU's backward 41 launches); K6 and the leaky ReLU's backward held on
+    a recorded step; TRAIN_STEPS steps checked as in 12, peak memory; a
+    step with the kernels against one with K6 and the leaky ReLU's
+    backward plain, and a rerun (autograd's gather backward adds with
+    atomics: gradients held to their tolerance, bit-identity reported).
+26. ScanNet-discrete exact training (BaselineDiscreteCRFSegNet(20 classes,
+    steps=10), B16 x 8192), as in 25 (K6 11 launches a step with the CRF's
+    kNN(32), the leaky ReLU's backward 37).
 
 Prints the card's name and power limit, one JSON line of kernel results
 and, last, {"ok": true, "device": {...}}. Exits non-zero, without that
@@ -116,6 +150,7 @@ chiprun_out/chip_smoke.json.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import os
 import re
@@ -280,6 +315,24 @@ SEMANTIC3D_PER_REQUEST = {
     "select_min_k": 0,        # the exact regime only
     "leaky_relu_bwd": 0,
 }
+# ShapeNet's CRFSegNet_Part is the small family's CRF net with a wider
+# classifier: a B16 x 2048 request launches what a ScanNet request does (its
+# decoders' fused CRF cores at K 15 on 2048, 512, 128 and 32 rows a cloud),
+# and a B8 step what a ScanNet step does (SCANNET_PER_REQUEST, _PER_STEP)
+SHAPENET_TRAIN_BATCH = 8     # config_bench.py's micro: ShapeNet trains at B8
+# SemanticKITTI serves the flagship at 65536 points a cloud, as Semantic3D:
+# the launches of SEMANTIC3D_PER_REQUEST a request. Its train step contracts
+# every same-scale conv with at least 4096 rows and width <= 32 through K7
+# (conv1_1, conv1_2, conv2_2, conv3_2), each with a K1 gather of pos; the
+# strided convs and the CRFs gather with K1 (the eval kernels K3-K5 do not
+# train): K1 18, K7 4, and K8 for every gather but the 4 of pos and for the
+# 4 K7 calls
+KITTI_PER_STEP = {**EXPECTED_PER_STEP, "windowed_weighted_reduce": 4}
+# per exact-regime train step, its pyramid built in the step: K6 selects the
+# pyramid's 10 kNNs (and the discrete CRF's kNN(32)); the leaky ReLU's
+# backward runs once per activation; the CRFs are the scans, plain PyTorch
+SCANNET_EXACT_PER_STEP = {"select_min_k": 10, "leaky_relu_bwd": 41}
+DISCRETE_EXACT_PER_STEP = {"select_min_k": 11, "leaky_relu_bwd": 37}
 REPLACES = {
     "windowed_gather": "crfconv_tpu/ops/windowed_pallas.py:448",
     "window_knn": "crfconv_tpu/ops/windowed_pallas.py:684",
@@ -314,12 +367,15 @@ OF_BOUND = {}
 PACKED_CHECKED = []
 # launches of each kernel in each main path: {kernel: {path: count}}
 LAUNCHES = {name: {} for name in REPLACES}
+# requests, steps or evals of each main path: {path: count}
+UNITS = {}
 
 
 def record_launches(path: str, counts: dict, expected: dict, units: int,
                     unit: str) -> None:
     """Check one main path's launch counts against ``expected`` per
     ``unit`` and keep them."""
+    UNITS[path] = units
     for name, per in expected.items():
         expect(counts[name] == per * units,
                f"{path}: {counts[name]} launches of {name} in {units} "
@@ -766,8 +822,9 @@ def discrete_dc_mass(args, got):
 BWD_CHECKS = {}
 # paths whose K8 calls are held bit-equal to the plain version on CPU
 # copies: index_add_ on the CPU adds in index order, as K8 does; the
-# discrete step's 5 GB calls keep the rounding bound alone
-BWD_CPU_PATHS = ("flagship train", "scannet train")
+# discrete step's 5 GB calls and SemanticKITTI's (B8 x 65536, held on the
+# CPU by tests/test_torch_cuda.py) keep the rounding bound alone
+BWD_CPU_PATHS = ("flagship train", "scannet train", "shapenet train")
 
 
 def check_gather_bwd(kernel, args, kwargs, got, path) -> None:
@@ -1327,12 +1384,13 @@ def snapshot(model) -> dict:
     return {n: t.detach().clone() for n, t in model.state_dict().items()}
 
 
-def step_phases_ms(state, raw, gen, label_offset: int = 0, mode=None):
+def step_phases_ms(state, raw, gen, label_offset: int = 0, mode=None,
+                   build=None):
     """One train step in make_train_step's order, with a synchronize after
     each phase: host ms of (pyramid, forward + loss, backward, optimizer).
     The confusion matrix, a few small kernels, is left out. With ``mode``
     (a built pyramid's regime) ``raw`` is that PointBatch and the pyramid
-    phase is empty."""
+    phase is empty, unless ``build(raw, gen)`` builds it there."""
     from crfconv_tpu_torch.train.losses import segmentation_loss
     from crfconv_tpu_torch.train.train_state import (
         TRAIN_MODE, build_windowed_batch,
@@ -1350,7 +1408,7 @@ def step_phases_ms(state, raw, gen, label_offset: int = 0, mode=None):
         mode = TRAIN_MODE
         batch = build_windowed_batch(raw, gen, mode=TRAIN_MODE)
     else:
-        batch = raw
+        batch = raw if build is None else build(raw, gen)
     mark()
     out = state.model(batch, mode, dropout_generator=gen)
     loss = segmentation_loss(out, batch.y - label_offset)
@@ -1661,14 +1719,14 @@ def train_phases(dev, rng, out_dir: str, results: dict) -> dict:
 
 
 def small_train_path(label, state, raws, train_step, dev, cfg, expected,
-                     out_dir):
-    """The train main path of a small-family net at ScanNet's settings:
-    TRAIN_STEPS steps with their checks (a finite loss, every gradient
-    finite and nonzero, the confusion matrix counting the labelled points,
-    exact launch counts per step, every parameter and running statistic
-    moved), then one step's time, its phase split and a profile. Returns
-    the parameters (with the gradients of the last step taken) and the
-    measurements."""
+                     out_dir, mode=None, build=None):
+    """The train main path of a net at ``cfg``'s settings: TRAIN_STEPS
+    steps with their checks (a finite loss, every gradient finite and
+    nonzero, the confusion matrix counting the labelled points, exact
+    launch counts per step, every parameter and running statistic moved),
+    then one step's time, its phase split (``mode`` and ``build`` as in
+    :func:`step_phases_ms`) and a profile. Returns the parameters (with the
+    gradients of the last step taken) and the measurements."""
     from crfconv_tpu_torch import cuda_build
 
     b, n, n_cls = cfg.batch_size, cfg.sample_num, cfg.num_classes
@@ -1715,8 +1773,8 @@ def small_train_path(label, state, raws, train_step, dev, cfg, expected,
     gen_t = step_generator(dev, 50)
     step_ms = median_ms(lambda: train_step(state, raws[0], gen_t), runs=3,
                         warmup=1)
-    split = np.median([step_phases_ms(state, raws[0], gen_t, cfg.label_offset)
-                       for _ in range(3)], axis=0)
+    split = np.median([step_phases_ms(state, raws[0], gen_t, cfg.label_offset,
+                                      mode, build) for _ in range(3)], axis=0)
     print(f"# {label} one train step: {step_ms:.3f} ms (events, median of "
           f"3); phases pyramid {split[0]:.3f}, forward+loss {split[1]:.3f}, "
           f"backward {split[2]:.3f}, optimizer {split[3]:.3f} ms", flush=True)
@@ -1741,10 +1799,12 @@ def small_train_path(label, state, raws, train_step, dev, cfg, expected,
 
 
 def small_kernel_vs_plain_step(label, make_state, raw, dev, cfg, plain_pairs,
-                               expected, plain_launches, loss_rtol):
+                               expected, plain_launches, loss_rtol,
+                               dropout: bool = False):
     """From one state and one pyramid: a train step through the kernels, a
     second one for the run-to-run spread, and one with
-    ``plain_pairs`` patched in, differentiated by autograd. Launch counts
+    ``plain_pairs`` patched in, differentiated by autograd (with
+    ``dropout``, each from a generator of one seed). Launch counts
     (``expected`` for the kernel step, ``plain_launches`` for the plain
     one), the losses within ``loss_rtol``, every gradient within its
     tolerance (:func:`grad_gap`), parameters rtol 1e-3 atol 5e-5 and
@@ -1756,8 +1816,13 @@ def small_kernel_vs_plain_step(label, make_state, raw, dev, cfg, plain_pairs,
 
     batch = build_windowed_batch(raw, step_generator(dev, 100),
                                  mode=TRAIN_MODE)
-    pb_step = make_train_step(TRAIN_MODE, ignore_index=cfg.ignore_index,
-                              label_offset=cfg.label_offset, windowed=False)
+    step = make_train_step(TRAIN_MODE, ignore_index=cfg.ignore_index,
+                           label_offset=cfg.label_offset, windowed=False)
+
+    def pb_step(state, batch):
+        return step(state, batch,
+                    step_generator(dev, 101) if dropout else None)
+
     sk, sk2, sp = (make_state() for _ in range(3))
     cuda_build.reset_launch_counts()
     mk = pb_step(sk, batch)
@@ -1900,17 +1965,36 @@ def scannet_plain_pairs():
 
 
 def scannet_phases(dev, rng, out_dir: str, results: dict) -> dict:
-    """Phases 10-13: adds the ScanNet request's and step's kernel phases to
-    ``results`` and the ScanNet main paths' launches; returns the ScanNet
-    measurements."""
+    """Phases 10-13: ScanNet's CRFSegNet (:func:`crf_net_phases`)."""
+    cfg = scannet_config()
+    model = scannet_model(cfg, dev)
+    out, _ = crf_net_phases(
+        "scannet", model, SEED + 7, lambda: scannet_state(cfg, dev),
+        lambda: (*scannet_cloud(cfg, rng, dev), {}),
+        lambda: scannet_cloud(cfg, rng, dev, labels=True), cfg, cfg, dev,
+        out_dir, results)
+    return out
+
+
+def crf_net_phases(label, model, seed, make_state, request, raw_batch, cfg,
+                   tcfg, dev, out_dir: str, results: dict, score=None):
+    """A small-family net with continuous CRFs at steps >= 2 (ScanNet's
+    CRFSegNet, ShapeNet's CRFSegNet_Part), its batch norms and
+    compatibilities randomised from ``seed``: a warm-up request and a
+    warm-up train step whose kernel calls are held against the plain
+    versions, the serving main path (``request()`` gives a request's
+    positions, features and Predictor keywords; ``score(logp, keywords)``
+    reads each output), a kernel-vs-plain forward, a profile, the train
+    main path at ``tcfg``'s batch (``raw_batch()`` gives its labelled
+    RawBatches) and the kernel-vs-plain step. Adds the kernel phases to
+    ``results``; returns (the measurements, the train batches)."""
     from crfconv_tpu_torch import Predictor, cuda_build, make_train_step
     from crfconv_tpu_torch.serve import SERVING_MODE
     from crfconv_tpu_torch.train.train_state import TRAIN_MODE
 
-    cfg = scannet_config()
     b, n, n_cls = cfg.batch_size, cfg.sample_num, cfg.num_classes
-    gen = torch.Generator().manual_seed(SEED + 7)
-    model = randomize_batch_norms(scannet_model(cfg, dev), gen)
+    gen = torch.Generator().manual_seed(seed)
+    model = randomize_batch_norms(model, gen)
     with torch.no_grad():   # compatibilities away from the identity
         for name, p in model.named_parameters():
             if name.endswith(".c"):
@@ -1918,29 +2002,30 @@ def scannet_phases(dev, rng, out_dir: str, results: dict) -> dict:
     predictor = Predictor(model, device=dev, seed=SEED)
     crf_sites = crf_call_sites()
 
-    # 10. warm-up request and warm-up train step, recording every kernel
-    # call of each; every kernel held against its plain version on them
+    # warm-up request and warm-up train step, recording every kernel call
+    # of each; every kernel held against its plain version on them
     serve_sites = {k: v for k, v in call_sites().items()
                    if k in ("windowed_gather", "window_knn")}
     serve_sites.update((k, crf_sites[k]) for k in ("crf_operator",
                                                    "crf_iterate"))
-    pos, feats = scannet_cloud(cfg, rng, dev)
+    pos, feats, kw = request()
     calls = record_calls(serve_sites,
-                         lambda: predictor.predict_logits(pos, feats),
+                         lambda: predictor.predict_logits(pos, feats, **kw),
                          snapshot=tuple(crf_sites))
     torch.cuda.synchronize()
     for name, got in calls.items():
         per = SCANNET_PER_REQUEST[name]
         expect(len(got) == per,
-               f"scannet {name}: {len(got)} calls per request, expected {per}")
-    run_phases(results, "scannet serve", serve_sites, calls)
+               f"{label} {name}: {len(got)} calls per request, expected {per}")
+    crf_cores = sorted({(a[0].shape[1], a[0].shape[2], a[2].shape[2])
+                        for a, _ in calls["crf_iterate"]})
+    run_phases(results, f"{label} serve", serve_sites, calls)
     del calls
 
-    train_step = make_train_step(TRAIN_MODE, ignore_index=cfg.ignore_index,
-                                 label_offset=cfg.label_offset)
-    state = scannet_state(cfg, dev)
-    raws = [scannet_cloud(cfg, rng, dev, labels=True)
-            for _ in range(TRAIN_STEPS)]
+    train_step = make_train_step(TRAIN_MODE, ignore_index=tcfg.ignore_index,
+                                 label_offset=tcfg.label_offset)
+    state = make_state()
+    raws = [raw_batch() for _ in range(TRAIN_STEPS)]
     train_sites = {**train_call_sites(), **crf_sites}
     calls = record_calls(
         train_sites, lambda: train_step(state, raws[0], step_generator(dev, 0)),
@@ -1950,49 +2035,54 @@ def scannet_phases(dev, rng, out_dir: str, results: dict) -> dict:
     for name, got in calls.items():
         per = SCANNET_CALLS_PER_STEP[name]
         expect(len(got) == per,
-               f"scannet {name}: {len(got)} calls per step, expected {per}")
-    run_phases(results, "scannet train", train_sites, calls)
+               f"{label} {name}: {len(got)} calls per step, expected {per}")
+    run_phases(results, f"{label} train", train_sites, calls)
     del calls
     torch.cuda.empty_cache()
 
-    # 11. serving main path
-    reqs = [scannet_cloud(cfg, rng, dev) for _ in range(SCANNET_REQUESTS)]
+    # serving main path
+    reqs = [request() for _ in range(SCANNET_REQUESTS)]
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     cuda_build.reset_launch_counts()
     lat, outs = [], []
-    for p_, f_ in reqs:
+    for p_, f_, kw in reqs:
         t0 = time.perf_counter()
-        logp = predictor.predict_logits(p_, f_)
+        logp = predictor.predict_logits(p_, f_, **kw)
         torch.cuda.synchronize()
         lat.append(time.perf_counter() - t0)
         outs.append(logp)
-    record_launches("scannet serve", cuda_build.launch_counts(),
+    serve_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    record_launches(f"{label} serve", cuda_build.launch_counts(),
                     SCANNET_PER_REQUEST, SCANNET_REQUESTS, "requests")
-    for logp in outs:
+    for logp, (_, _, kw) in zip(outs, reqs):
         expect(tuple(logp.shape) == (b, n, n_cls),
-               f"scannet log-probs shape {tuple(logp.shape)}")
-        expect(bool(torch.isfinite(logp).all()), "scannet: non-finite output")
+               f"{label} log-probs shape {tuple(logp.shape)}")
+        expect(bool(torch.isfinite(logp).all()), f"{label}: non-finite output")
         norm = float((torch.logsumexp(logp, -1)).abs().max())
-        expect(norm <= 1e-4, f"scannet: log-probs off normal by {norm}")
+        expect(norm <= 1e-4, f"{label}: log-probs off normal by {norm}")
         labels = logp.argmax(-1)
         expect(bool(((labels >= 0) & (labels < n_cls)).all()),
-               f"scannet: labels outside [0, {n_cls})")
+               f"{label}: labels outside [0, {n_cls})")
+        if score is not None:
+            score(logp, kw)
     del outs
     pts_s = SCANNET_REQUESTS * b * n / sum(lat)
-    print(f"# scannet: served {SCANNET_REQUESTS} requests of {b}x{n}: "
-          f"{[round(t * 1e3, 3) for t in lat]} ms, {pts_s:.1f} points/s",
-          flush=True)
+    print(f"# {label}: served {SCANNET_REQUESTS} requests of {b}x{n}: "
+          f"{[round(t * 1e3, 3) for t in lat]} ms, {pts_s:.1f} points/s; "
+          f"peak memory {serve_peak:.2f} GiB; CRF cores on (rows a cloud, "
+          f"width, K) {crf_cores}", flush=True)
 
-    p_, f_ = reqs[0]
+    p_, f_, kw = reqs[0]
 
     def pyramid():
-        return predictor.prepare(p_, f_)
+        return predictor.prepare(p_, f_, **kw)
 
     batch, _ = pyramid()
     with torch.inference_mode():
         pyramid_ms = median_ms(pyramid, runs=5)
         forward_ms = median_ms(lambda: model(batch, SERVING_MODE), runs=5)
-        request_ms = median_ms(lambda: predictor.predict_logits(p_, f_),
+        request_ms = median_ms(lambda: predictor.predict_logits(p_, f_, **kw),
                                runs=5)
         got = model(batch, SERVING_MODE)
         with patched(scannet_plain_pairs()):
@@ -2008,46 +2098,47 @@ def scannet_phases(dev, rng, out_dir: str, results: dict) -> dict:
     # bit-equal to their plain versions and the rest of the forward is the
     # same torch code: bit-equal
     expect(fwd_bit_equal,
-           f"scannet kernel vs plain forward: max |dlogp| {d_logp}")
-    expect(agree >= 0.999, f"scannet argmax agreement {agree}")
-    print(f"# scannet forward kernels vs plain: max |dlogp| {d_logp:.3g} "
+           f"{label} kernel vs plain forward: max |dlogp| {d_logp}")
+    expect(agree >= 0.999, f"{label} argmax agreement {agree}")
+    print(f"# {label} forward kernels vs plain: max |dlogp| {d_logp:.3g} "
           f"(max |logp| {scale:.3g}), bit-equal {fwd_bit_equal}, argmax "
           f"agreement {agree}", flush=True)
-    print(f"# scannet one request: {request_ms:.3f} ms (pyramid "
+    print(f"# {label} one request: {request_ms:.3f} ms (pyramid "
           f"{pyramid_ms:.3f} ms, forward {forward_ms:.3f} ms; plain-version "
           f"forward {plain_forward_ms:.3f} ms)", flush=True)
-    del got, ref
+    del got, ref, batch
     with torch.inference_mode():
         serve_profile, serve_busy = profile_phase(
-            "scannet profiler", lambda: predictor.predict_logits(p_, f_),
-            os.path.join(out_dir, "chip_smoke_scannet_trace.json"),
+            f"{label} profiler",
+            lambda: predictor.predict_logits(p_, f_, **kw),
+            os.path.join(out_dir, f"chip_smoke_{label}_trace.json"),
             "request", request_ms,
         )
     del predictor, reqs
     torch.cuda.empty_cache()
 
-    # 12. train main path
-    params, train = small_train_path("scannet", state, raws, train_step, dev,
-                                     cfg, SCANNET_PER_STEP, out_dir)
+    # train main path
+    params, train = small_train_path(label, state, raws, train_step, dev,
+                                     tcfg, SCANNET_PER_STEP, out_dir)
     c_grads = {nm: float(p.grad.abs().max()) for nm, p in params.items()
                if nm.endswith(".c")}
     expect(len(c_grads) == 4 and all(v > 0 for v in c_grads.values()),
-           f"scannet: CRF compatibility gradients {c_grads}")
+           f"{label}: CRF compatibility gradients {c_grads}")
     del state, params
     torch.cuda.empty_cache()
 
-    # 13. one state, one pyramid: kernels vs plain versions, and a second
+    # one state, one pyramid: kernels vs plain versions, and a second
     # kernel step for the run-to-run spread; the forward is bit-equal (K1,
     # K9, K10), so the loss is; the backward differs from the plain one by
     # the order of autograd's atomics and K11's and K12's sums
     step_check = small_kernel_vs_plain_step(
-        "scannet", lambda: scannet_state(cfg, dev), raws[0], dev, cfg,
-        scannet_plain_pairs(), {**SCANNET_PER_STEP, "window_knn": 0}, {},
-        loss_rtol=0.0,
+        label, make_state, raws[0], dev, tcfg, scannet_plain_pairs(),
+        {**SCANNET_PER_STEP, "window_knn": 0}, {}, loss_rtol=0.0,
     )
     return {
-        "config": {"model": cfg.model_name, "batch": b, "points": n,
+        "config": {"model": tcfg.model_name, "batch": b, "points": n,
                    "classes": n_cls, "steps": cfg.steps,
+                   "train_batch": tcfg.batch_size,
                    "label_offset": cfg.label_offset},
         "requests_ms": [t * 1e3 for t in lat],
         "points_per_s": pts_s,
@@ -2058,6 +2149,8 @@ def scannet_phases(dev, rng, out_dir: str, results: dict) -> dict:
         "max_abs_dlogp": d_logp,
         "forward_bit_equal": fwd_bit_equal,
         "argmax_agreement": agree,
+        "serve_peak_gib": serve_peak,
+        "crf_cores": crf_cores,
         "kernel_busy_ms": serve_busy,
         "profile": serve_profile[:40],
         **train,
@@ -2065,7 +2158,7 @@ def scannet_phases(dev, rng, out_dir: str, results: dict) -> dict:
         "kernel_vs_plain_step": step_check,
         "calls_per_request": SCANNET_PER_REQUEST,
         "calls_per_step": SCANNET_PER_STEP,
-    }
+    }, raws
 
 
 # --------------------------------------------------------------------------
@@ -2326,17 +2419,29 @@ def discrete_phases(dev, rng, out_dir: str, results: dict) -> dict:
 
 
 def semantic3d_phases(dev, rng, out_dir: str, results: dict) -> dict:
-    """Phase 15: adds the Semantic3D request's kernel phases to ``results``
-    and its main path's launches; returns its measurements."""
+    """Phase 15: Semantic3D serving (:func:`flagship_serve_phases`)."""
+    from crfconv_tpu_torch.train.config import Semantic3DConfig
+
+    return flagship_serve_phases("semantic3d", Semantic3DConfig(), SEED + 13,
+                                 dev, rng, out_dir, results)
+
+
+def flagship_serve_phases(label, cfg, seed, dev, rng, out_dir: str,
+                          results: dict) -> dict:
+    """A serving path of the full-width flagship at a large cloud size
+    (``cfg``'s batch, points, input channels and classes), weights from
+    ``seed``: a recorded warm-up request whose K1-K5 calls are held against
+    the plain versions, SEMANTIC3D_REQUESTS requests through the Predictor
+    with the launches of SEMANTIC3D_PER_REQUEST each, a kernel-vs-plain
+    forward, a profile and peak memory. Adds the kernel phases to
+    ``results`` and returns the measurements."""
     from crfconv_tpu_torch import Predictor, PointConvResNet, cuda_build
     from crfconv_tpu_torch.models import point_conv_big
     from crfconv_tpu_torch.ops import conv
     from crfconv_tpu_torch.serve import SERVING_MODE
-    from crfconv_tpu_torch.train.config import Semantic3DConfig
 
-    cfg = Semantic3DConfig()
     b, n, n_cls = cfg.batch_size, cfg.sample_num, cfg.num_classes
-    gen = torch.Generator().manual_seed(SEED + 13)
+    gen = torch.Generator().manual_seed(seed)
     model = randomize_batch_norms(
         PointConvResNet(n_cls, cfg.in_channels, use_crf=True, steps=cfg.steps,
                         device=dev, generator=gen), gen)
@@ -2360,11 +2465,11 @@ def semantic3d_phases(dev, rng, out_dir: str, results: dict) -> dict:
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     for name, got in calls.items():
         per = SEMANTIC3D_PER_REQUEST[name]
-        expect(len(got) == per, f"semantic3d {name}: {len(got)} calls per "
+        expect(len(got) == per, f"{label} {name}: {len(got)} calls per "
                f"request, expected {per}")
     strided_rows = sorted((a[3].shape[1], a[0].shape[2], a[4].shape[2])
                           for a, _ in calls["point_conv_fused_strided"])
-    run_phases(results, "semantic3d serve", sites, calls)
+    run_phases(results, f"{label} serve", sites, calls)
     del calls
     torch.cuda.empty_cache()
 
@@ -2378,14 +2483,14 @@ def semantic3d_phases(dev, rng, out_dir: str, results: dict) -> dict:
         torch.cuda.synchronize()
         lat.append(time.perf_counter() - t0)
         expect(tuple(logits.shape) == (b, n, n_cls),
-               f"semantic3d logits shape {tuple(logits.shape)}")
+               f"{label} logits shape {tuple(logits.shape)}")
         expect(bool(torch.isfinite(logits).all()),
-               "semantic3d: non-finite logits")
+               f"{label}: non-finite logits")
         del logits
-    record_launches("semantic3d serve", cuda_build.launch_counts(),
+    record_launches(f"{label} serve", cuda_build.launch_counts(),
                     SEMANTIC3D_PER_REQUEST, SEMANTIC3D_REQUESTS, "requests")
     pts_s = SEMANTIC3D_REQUESTS * b * n / sum(lat)
-    print(f"# semantic3d: served {SEMANTIC3D_REQUESTS} requests of {b}x{n}: "
+    print(f"# {label}: served {SEMANTIC3D_REQUESTS} requests of {b}x{n}: "
           f"{[round(t * 1e3, 3) for t in lat]} ms, {pts_s:.1f} points/s; "
           f"K5 on (rows, hidden, rider) {strided_rows}", flush=True)
 
@@ -2413,27 +2518,28 @@ def semantic3d_phases(dev, rng, out_dir: str, results: dict) -> dict:
     # per layer), carried through 20 layers: 1e-6 of the largest logit was
     # measured on the H100, so 1e-4 leaves a hundredfold
     expect(d_logit <= 1e-4 * scale,
-           f"semantic3d kernel vs plain forward: max |dlogit| {d_logit}")
-    expect(agree >= 0.999, f"semantic3d argmax agreement {agree}")
-    print(f"# semantic3d forward kernels vs plain: max |dlogit| "
+           f"{label} kernel vs plain forward: max |dlogit| {d_logit}")
+    expect(agree >= 0.999, f"{label} argmax agreement {agree}")
+    print(f"# {label} forward kernels vs plain: max |dlogit| "
           f"{d_logit:.3g} (max |logit| {scale:.3g}), argmax agreement "
           f"{agree}", flush=True)
-    print(f"# semantic3d one request: {request_ms:.3f} ms (pyramid "
+    print(f"# {label} one request: {request_ms:.3f} ms (pyramid "
           f"{pyramid_ms:.3f} ms, forward {forward_ms:.3f} ms; plain-version "
           f"forward {plain_forward_ms:.3f} ms); peak memory of a request "
           f"{peak:.2f} GiB", flush=True)
     del got, ref, batch
     with torch.inference_mode():
         profile_rows, busy = profile_phase(
-            "semantic3d profiler", lambda: predictor.predict_logits(p_, f_),
-            os.path.join(out_dir, "chip_smoke_semantic3d_trace.json"),
+            f"{label} profiler", lambda: predictor.predict_logits(p_, f_),
+            os.path.join(out_dir, f"chip_smoke_{label}_trace.json"),
             "request", request_ms,
         )
     del predictor, model, reqs
     torch.cuda.empty_cache()
     return {
         "config": {"model": "PointConvResNet", "batch": b, "points": n,
-                   "classes": n_cls, "steps": cfg.steps},
+                   "in_channels": cfg.in_channels, "classes": n_cls,
+                   "steps": cfg.steps},
         "requests_ms": [t * 1e3 for t in lat],
         "points_per_s": pts_s,
         "request_ms": request_ms,
@@ -2820,6 +2926,427 @@ def discrete_exact_phase(dev, rng, out_dir: str, results: dict) -> dict:
     }
 
 
+# --------------------------------------------------------------------------
+# ShapeNet: CRFSegNet_Part(steps=10), part segmentation with a category
+# --------------------------------------------------------------------------
+
+
+def shapenet_config(batch_size=None):
+    """ShapeNetConfig; its pyramid is build_pyramid_windowed's defaults, as
+    the reference bench builds it (config_bench.py:108-109)."""
+    from crfconv_tpu_torch.train.config import ShapeNetConfig
+
+    cfg = ShapeNetConfig()
+    if batch_size is not None:
+        cfg = dataclasses.replace(cfg, batch_size=batch_size)
+    return cfg
+
+
+def shapenet_model(cfg, device, seed: int = SEED):
+    from crfconv_tpu_torch import CRFSegNet_Part
+
+    return CRFSegNet_Part(cfg.num_classes, cfg.in_channels, steps=cfg.steps,
+                          device=device,
+                          generator=torch.Generator().manual_seed(seed))
+
+
+def shapenet_state(cfg, device, seed: int = SEED):
+    """A fresh TrainState with ShapeNet's optimizer settings."""
+    from crfconv_tpu_torch import TrainState
+
+    return TrainState.create(
+        shapenet_model(cfg, device, seed), lr=cfg.lr, momentum=cfg.momentum,
+        weight_decay=cfg.weight_decay, gamma=cfg.gamma,
+    )
+
+
+def shapenet_cloud(cfg, rng, device, labels: bool = False):
+    """B x 2048 random clouds with 6 features and a category each in [0,
+    16); with ``labels``, a RawBatch whose labels are parts of the cloud's
+    category."""
+    from crfconv_tpu_torch import RawBatch
+    from crfconv_tpu_torch.train.metrics import SHAPENET_OBJ_CLASSES
+
+    b, n = cfg.batch_size, cfg.sample_num
+    pos = torch.as_tensor(rng.random((b, n, 3), dtype=np.float32),
+                          device=device)
+    feats = torch.as_tensor(
+        rng.random((b, n, cfg.in_channels), dtype=np.float32), device=device)
+    category = rng.integers(0, len(SHAPENET_OBJ_CLASSES), (b,))
+    if not labels:
+        return pos, feats, torch.as_tensor(category, device=device)
+    y = shapenet_labels(rng, category, n)
+    return RawBatch(pos=pos, x=feats, y=torch.as_tensor(y, device=device),
+                    category=torch.as_tensor(category, device=device))
+
+
+def shapenet_labels(rng, category, n: int) -> np.ndarray:
+    """[B, n] part labels, each cloud's drawn among its category's parts."""
+    from crfconv_tpu_torch.train.metrics import (
+        SHAPENET_OBJ_CLASSES, SHAPENET_SEG_CLASSES,
+    )
+
+    names = {v: k for k, v in SHAPENET_OBJ_CLASSES.items()}
+    return np.stack([rng.choice(SHAPENET_SEG_CLASSES[names[int(c)]], n)
+                     for c in category])
+
+
+def shapenet_phases(dev, rng, out_dir: str, results: dict) -> dict:
+    """Phases 20-21: ShapeNet's CRFSegNet_Part(50 classes, steps=10) served
+    at B16 x 2048 with a category a cloud and trained at B8
+    (:func:`crf_net_phases`), the part IoU of its outputs, and one step
+    with curve jitter."""
+    from crfconv_tpu_torch import make_train_step
+    from crfconv_tpu_torch.ops.windowed import check_window_consistency
+    from crfconv_tpu_torch.train.metrics import RunningScoreShapeNet
+    from crfconv_tpu_torch.train.train_state import (
+        TRAIN_MODE, build_windowed_batch,
+    )
+
+    cfg = shapenet_config()
+    tcfg = shapenet_config(SHAPENET_TRAIN_BATCH)
+    score = RunningScoreShapeNet()
+
+    def request():
+        pos, feats, category = shapenet_cloud(cfg, rng, dev)
+        return pos, feats, {"category": category}
+
+    def read(logp, kw):
+        # part IoU against labels drawn in each cloud's category (the
+        # metric's path; the weights are random)
+        cats = kw["category"].tolist()
+        y = shapenet_labels(rng, cats, cfg.sample_num)
+        pred = logp.argmax(-1).cpu().numpy()
+        for i, c in enumerate(cats):
+            score.update(y[i], pred[i], c)
+
+    out, raws = crf_net_phases(
+        "shapenet", shapenet_model(cfg, dev), SEED + 19,
+        lambda: shapenet_state(tcfg, dev), request,
+        lambda: shapenet_cloud(tcfg, rng, dev, labels=True), cfg, tcfg, dev,
+        out_dir, results, score=read)
+    p_iou, mp_iou, _ = score.get_scores()
+    expect(0.0 <= p_iou <= 1.0 and 0.0 <= mp_iou <= 1.0,
+           f"shapenet: part IoU {p_iou}, {mp_iou} outside [0, 1]")
+    print(f"# shapenet: part IoU of random weights {p_iou:.4f} (mean over "
+          f"categories {mp_iou:.4f})", flush=True)
+
+    # one step with curve jitter: the rotation drawn from the step's
+    # generator turns its Morton curve; its pyramid is window-consistent at
+    # every scale, its loss finite, and a rerun from the same seed
+    # bit-identical
+    jit_step = make_train_step(TRAIN_MODE, ignore_index=tcfg.ignore_index,
+                               label_offset=tcfg.label_offset,
+                               curve_jitter=True)
+    jb, order = build_windowed_batch(raws[0], step_generator(dev, 400),
+                                     mode=TRAIN_MODE, curve_jitter=True,
+                                     return_order=True)
+    _, plain_order = build_windowed_batch(raws[0], step_generator(dev, 400),
+                                          mode=TRAIN_MODE, return_order=True)
+    consistency = []
+    for sc in jb.scales:
+        n_s = sc.pos.shape[1]
+        consistency.append(min(
+            check_window_consistency(sc.neighbor_idx.cpu().numpy(), n_s),
+            check_window_consistency(sc.sub_idx.cpu().numpy(), n_s),
+            check_window_consistency(sc.up_idx.cpu().numpy(),
+                                     sc.sub_idx.shape[1])))
+    expect(all(c == 1.0 for c in consistency),
+           f"shapenet jittered pyramid: window consistency {consistency}")
+    turned = float((order != plain_order).float().mean())
+    expect(turned > 0.5, f"shapenet jitter: only {turned} of the Morton order "
+           "moved")
+    del jb
+    jit_runs = []
+    for _ in range(2):
+        st = shapenet_state(tcfg, dev)
+        m = jit_step(st, raws[0], step_generator(dev, 400))
+        jit_runs.append((float(m["loss"]),
+                         [p.grad.clone() for p in st.model.parameters()]))
+        del st
+    (loss_a, grads_a), (loss_b, grads_b) = jit_runs
+    jit_identical = loss_a == loss_b and all(
+        torch.equal(a, b_) for a, b_ in zip(grads_a, grads_b))
+    expect(bool(np.isfinite(loss_a)), f"shapenet jittered step: loss {loss_a}")
+    expect(jit_identical, "shapenet jittered step: a rerun from the same "
+           "seed is not bit-identical")
+    print(f"# shapenet jittered step: loss {loss_a:.6f}, window consistency "
+          f"{consistency}, {turned:.3f} of the order moved, rerun "
+          f"bit-identical {jit_identical}", flush=True)
+    del jit_runs, grads_a, grads_b, raws
+    torch.cuda.empty_cache()
+    return {
+        **out,
+        "pyramid": "build_pyramid_windowed defaults",
+        "part_iou": [p_iou, mp_iou],
+        "jitter": {"loss": loss_a, "window_consistency": consistency,
+                   "order_moved": turned, "rerun_bit_identical": jit_identical},
+    }
+
+
+# --------------------------------------------------------------------------
+# SemanticKITTI: the flagship at B8 x 65536 with 4 input channels
+# --------------------------------------------------------------------------
+
+
+def kitti_config():
+    from crfconv_tpu_torch.train.config import SemanticKITTIConfig
+
+    return SemanticKITTIConfig()
+
+
+def kitti_state(cfg, device, seed: int = SEED):
+    """A fresh TrainState of the full-width flagship at SemanticKITTI's
+    widths (4 input channels, 19 classes), dropout 0.5, its optimizer."""
+    from crfconv_tpu_torch import PointConvResNet, TrainState
+
+    model = PointConvResNet(
+        cfg.num_classes, cfg.in_channels, use_crf=True, steps=cfg.steps,
+        dropout_rate=DROPOUT, device=device,
+        generator=torch.Generator().manual_seed(seed),
+    )
+    return TrainState.create(model, lr=cfg.lr, momentum=cfg.momentum,
+                             weight_decay=cfg.weight_decay, gamma=cfg.gamma)
+
+
+def kitti_phases(dev, rng, out_dir: str, results: dict) -> dict:
+    """Phases 22-23: SemanticKITTI served (:func:`flagship_serve_phases`)
+    and trained at B8 x 65536 (label_offset 1, dropout 0.5): a recorded
+    warm-up step whose K1, K2, K7, K8 and leaky-ReLU calls are held against
+    the plain versions, TRAIN_STEPS steps with exact launch counts, and a
+    kernel step against one through the plain versions, rerun
+    bit-identical."""
+    from crfconv_tpu_torch import RawBatch, make_train_step
+    from crfconv_tpu_torch.models import point_conv_big
+    from crfconv_tpu_torch.ops import neighbors, windowed
+    from crfconv_tpu_torch.train.train_state import TRAIN_MODE
+
+    cfg = kitti_config()
+    serving = flagship_serve_phases("kitti", cfg, SEED + 23, dev, rng,
+                                    out_dir, results)
+    torch.cuda.empty_cache()
+
+    def raw_batch():
+        b, n = cfg.batch_size, cfg.sample_num
+        pos = torch.as_tensor(rng.random((b, n, 3), dtype=np.float32),
+                              device=dev)
+        feats = torch.as_tensor(
+            rng.random((b, n, cfg.in_channels), dtype=np.float32), device=dev)
+        y = torch.as_tensor(rng.integers(0, cfg.num_classes + 1, (b, n)),
+                            device=dev)
+        return RawBatch(pos=pos, x=feats, y=y)
+
+    train_step = make_train_step(TRAIN_MODE, ignore_index=cfg.ignore_index,
+                                 label_offset=cfg.label_offset)
+    state = kitti_state(cfg, dev)
+    raws = [raw_batch() for _ in range(TRAIN_STEPS)]
+    sites = train_call_sites()
+    calls = record_calls(
+        sites, lambda: train_step(state, raws[0], step_generator(dev, 0)))
+    torch.cuda.synchronize()
+    for name, got in calls.items():
+        per = KITTI_PER_STEP[name]
+        expect(len(got) == per,
+               f"kitti {name}: {len(got)} calls per step, expected {per}")
+    k7_rows = sorted((a[0].shape[1], a[0].shape[2])
+                     for a, _ in calls["windowed_weighted_reduce"])
+    run_phases(results, "kitti train", sites, calls)
+    del calls
+    torch.cuda.empty_cache()
+    params, train = small_train_path("kitti", state, raws, train_step, dev,
+                                     cfg, KITTI_PER_STEP, out_dir)
+    del state, params
+    torch.cuda.empty_cache()
+    plain_pairs = [
+        (neighbors, "windowed_gather", windowed.windowed_gather_plain),
+        (point_conv_big, "weighted_gather_reduce",
+         lambda *a: windowed.windowed_weighted_reduce_plain(*a)[0]),
+        leaky_plain_pair(),
+    ]
+    step_check = small_kernel_vs_plain_step(
+        "kitti", lambda: kitti_state(cfg, dev), raws[0], dev, cfg,
+        plain_pairs, {**KITTI_PER_STEP, "window_knn": 0}, {}, loss_rtol=0.0,
+        dropout=True,
+    )
+    print(f"# kitti train: K7 on (rows a cloud, width) {k7_rows}", flush=True)
+    del raws
+    torch.cuda.empty_cache()
+    return {**serving, **train, "k7_calls": k7_rows,
+            "kernel_vs_plain_step": step_check,
+            "calls_per_step": KITTI_PER_STEP}
+
+
+# --------------------------------------------------------------------------
+# the CRF heads' exact-regime training: the scans under K6's pyramid
+# --------------------------------------------------------------------------
+
+
+def exact_train_path(label, make_state, make_raw, cfg, dev, expected,
+                     out_dir) -> tuple:
+    """An exact-regime train path of a small-family net at ``cfg``'s
+    settings: each step builds its pyramid on the card
+    (build_pyramid_device with ``cfg``'s kernel sizes, ratios and k_up, K6
+    selecting) and takes make_train_step(NeighborMode("exact"),
+    windowed=False) on it; its CRFs run the scans (plain PyTorch,
+    differentiated by autograd). A recorded warm-up step whose K6 and
+    leaky-ReLU calls are held against the plain versions; the main path of
+    :func:`small_train_path` with ``expected`` launches a step; from one
+    state and pyramid seed a step with the kernels against one with K6 and
+    the leaky ReLU's backward plain (losses equal, gradients within
+    :func:`grad_gap`), and a rerun. Returns (the kernel phases, the
+    measurements)."""
+    from crfconv_tpu_torch import (
+        build_pyramid_device, cuda_build, make_train_step,
+    )
+    from crfconv_tpu_torch.data.batch import PointBatch
+    from crfconv_tpu_torch.ops import neighbors, windowed
+
+    train_step = make_train_step(EXACT, ignore_index=cfg.ignore_index,
+                                 label_offset=cfg.label_offset,
+                                 windowed=False)
+
+    def build(raw, gen):
+        return PointBatch(x=raw.x, y=raw.y, scales=build_pyramid_device(
+            raw.pos, cfg.kernel_sizes, cfg.ratios, k_up=cfg.k_up,
+            generator=gen, device=dev))
+
+    def step(state, raw, gen):
+        return train_step(state, build(raw, gen), gen)
+
+    state = make_state()
+    raws = [make_raw() for _ in range(TRAIN_STEPS)]
+    sites = {"select_min_k": (neighbors, "select_min_k",
+                              windowed.select_min_k,
+                              windowed.select_min_k_plain),
+             "leaky_relu_bwd": train_call_sites()["leaky_relu_bwd"]}
+    calls = record_calls(sites, lambda: step(state, raws[0],
+                                             step_generator(dev, 0)))
+    torch.cuda.synchronize()
+    for name, got in calls.items():
+        expect(len(got) == expected[name], f"{label} {name}: {len(got)} "
+               f"calls per step, expected {expected[name]}")
+    results = {}
+    run_phases(results, f"{label} train", sites, calls)
+    del calls
+    torch.cuda.empty_cache()
+
+    params, train = small_train_path(label, state, raws, step, dev, cfg,
+                                     only(expected), out_dir, EXACT, build)
+    del state, params
+    torch.cuda.empty_cache()
+
+    # one pyramid seed: K6 and the leaky ReLU's backward against their plain
+    # versions (the pyramid and the forward are bit-equal, so the loss is);
+    # the scans' backward adds with autograd's atomics (gather's backward),
+    # so the gradients are held to grad_gap and a rerun is reported
+    sk, sk2, sp = (make_state() for _ in range(3))
+    cuda_build.reset_launch_counts()
+    mk = step(sk, raws[0], step_generator(dev, 100))
+    k_counts = cuda_build.launch_counts()
+    step(sk2, raws[0], step_generator(dev, 100))
+    cuda_build.reset_launch_counts()
+    with patched([(neighbors, "select_min_k", windowed.select_min_k_plain),
+                  leaky_plain_pair()]):
+        mp = step(sp, raws[0], step_generator(dev, 100))
+    p_counts = cuda_build.launch_counts()
+    torch.cuda.synchronize()
+    for name, per in expected.items():
+        expect(k_counts[name] == per, f"{label} kernel step: "
+               f"{k_counts[name]} launches of {name}, expected {per}")
+    expect(not any(p_counts.values()), f"{label} plain step launched "
+           f"{p_counts}")
+    loss_k, loss_p = float(mk["loss"]), float(mp["loss"])
+    expect(loss_k == loss_p, f"{label} kernel vs plain step: loss {loss_k} vs "
+           f"{loss_p}")
+    d_grad, worst, g_max = grad_gap(sk.model, sp.model)
+    expect(d_grad <= 1.0, f"{label} kernel vs plain step: gradient of "
+           f"{worst} at {d_grad:.3g} of its tolerance")
+    d_rerun, worst_rerun, _ = grad_gap(sk.model, sk2.model)
+    expect(d_rerun <= 1.0, f"{label} kernel step rerun: gradient of "
+           f"{worst_rerun} at {d_rerun:.3g} of its tolerance")
+    rerun_differs = [
+        nm for (nm, p), q in zip(sk.model.named_parameters(),
+                                 sk2.model.parameters())
+        if not torch.equal(p.grad, q.grad)]
+    print(f"# {label} train step kernels vs plain (one pyramid seed): loss "
+          f"{loss_k} vs {loss_p}, worst gradient {worst} at {d_grad:.3g} of "
+          f"its tolerance (largest |grad| {g_max:.3g}); rerun: "
+          f"{len(rerun_differs)} gradients not bit-identical, worst "
+          f"{worst_rerun} at {d_rerun:.3g}", flush=True)
+    del sk, sk2, sp, raws
+    torch.cuda.empty_cache()
+    return results, {
+        **train,
+        "kernel_vs_plain_step": {
+            "loss": [loss_k, loss_p], "grad_of_tolerance": d_grad,
+            "grad_worst": worst, "grad_max": g_max,
+            "rerun_grad_of_tolerance": d_rerun,
+            "rerun_grads_differ": rerun_differs},
+        "calls_per_step": only(expected),
+    }
+
+
+def scannet_exact_phases(dev, rng, out_dir: str, results: dict) -> dict:
+    """Phases 24-25: ScanNet's CRFSegNet(20 classes, steps=10) served and
+    trained in the exact regime at B16 x 8192 (ScanNet's kernel sizes,
+    ratios and k_up = 3): K6 under the pyramid, the CRFs' scans."""
+    cfg = scannet_config()
+    b, n, n_cls = cfg.batch_size, cfg.sample_num, cfg.num_classes
+    gen = torch.Generator().manual_seed(SEED + 29)
+    model = randomize_batch_norms(scannet_model(cfg, dev), gen)
+    with torch.no_grad():   # compatibilities away from the identity
+        for name, p in model.named_parameters():
+            if name.endswith(".c"):
+                p.add_(0.1 * torch.randn(p.shape, generator=gen).to(dev))
+
+    def check_logp(logp):
+        expect(tuple(logp.shape) == (b, n, n_cls),
+               f"scannet exact log-probs shape {tuple(logp.shape)}")
+        expect(bool(torch.isfinite(logp).all()),
+               "scannet exact: non-finite log-probs")
+        norm = float(torch.logsumexp(logp, -1).abs().max())
+        expect(norm <= 1e-4, f"scannet exact: log-probs off normal by {norm}")
+
+    serve = ExactServer(model, dev, cfg.kernel_sizes, cfg.ratios, cfg.k_up)
+    phases, serving = exact_serve_path(
+        "scannet_exact", lambda: scannet_cloud(cfg, rng, dev), serve,
+        SCANNET_REQUESTS, EXACT_PER_REQUEST, check_logp, out_dir)
+    for name, r in phases.items():
+        results.setdefault(name, []).extend(r)
+    del model, serve
+    torch.cuda.empty_cache()
+    phases, train = exact_train_path(
+        "scannet_exact", lambda: scannet_state(cfg, dev),
+        lambda: scannet_cloud(cfg, rng, dev, labels=True), cfg, dev,
+        SCANNET_EXACT_PER_STEP, out_dir)
+    for name, r in phases.items():
+        results.setdefault(name, []).extend(r)
+    return {
+        "config": {"model": cfg.model_name, "batch": b, "points": n,
+                   "classes": n_cls, "steps": cfg.steps, "k_up": cfg.k_up,
+                   "mode": "exact"},
+        **serving, **train,
+    }
+
+
+def discrete_exact_train_phase(dev, rng, out_dir: str, results: dict) -> dict:
+    """Phase 26: ScanNet-discrete's BaselineDiscreteCRFSegNet(20 classes,
+    steps=10) trained in the exact regime at B16 x 8192: K6 under the
+    pyramid and the CRF's kNN(32), the discrete CRF's scan."""
+    cfg = scannet_config()
+    phases, train = exact_train_path(
+        "discrete_exact", lambda: discrete_state(cfg, dev),
+        lambda: scannet_cloud(cfg, rng, dev, labels=True), cfg, dev,
+        DISCRETE_EXACT_PER_STEP, out_dir)
+    for name, r in phases.items():
+        results.setdefault(name, []).extend(r)
+    return {"config": {"model": "BaselineDiscreteCRFSegNet",
+                       "batch": cfg.batch_size, "points": cfg.sample_num,
+                       "classes": cfg.num_classes, "steps": cfg.steps,
+                       "k_up": cfg.k_up, "mode": "exact"},
+            **train}
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -2949,23 +3476,35 @@ def main() -> int:
             request_ms,
         )
 
-    train = train_phases(dev, rng, out_dir, results)
-    torch.cuda.empty_cache()
-    scannet = scannet_phases(dev, rng, out_dir, results)
-    torch.cuda.empty_cache()
-    discrete = discrete_phases(dev, rng, out_dir, results)
-    semantic3d = semantic3d_phases(dev, rng, out_dir, results)
-    torch.cuda.empty_cache()
-    exact = exact_phases(dev, rng, out_dir, results)
-    two_view = two_view_phase(dev, rng, out_dir, results)
-    discrete_exact = discrete_exact_phase(dev, rng, out_dir, results)
+    paths = {}
 
-    # launches: the sum over the eleven main paths (flagship serve and
+    def run_path(key, fn):
+        t0 = time.perf_counter()
+        paths[key] = fn(dev, rng, out_dir, results)
+        torch.cuda.empty_cache()
+        seconds[key] = time.perf_counter() - t0
+        print(f"# [{time.perf_counter() - t_start:.1f} s] {key} took "
+              f"{seconds[key]:.1f} s", flush=True)
+
+    seconds = {"flagship serve": time.perf_counter() - t_start}
+    for key, fn in (("train", train_phases), ("scannet", scannet_phases),
+                    ("discrete", discrete_phases),
+                    ("semantic3d", semantic3d_phases),
+                    ("exact", exact_phases), ("two_view", two_view_phase),
+                    ("discrete_exact", discrete_exact_phase),
+                    ("shapenet", shapenet_phases), ("kitti", kitti_phases),
+                    ("scannet_exact", scannet_exact_phases),
+                    ("discrete_exact_train", discrete_exact_train_phase)):
+        run_path(key, fn)
+
+    # launches: the sum over the eighteen main paths (flagship serve and
     # train, ScanNet serve and train, ScanNet-discrete serve and train,
     # Semantic3D serve, flagship exact serve and train, the 2-view eval,
-    # ScanNet-discrete exact serve). The times are those of the first path
-    # whose calls were held against the plain version; every path's are in
-    # "phases", and max_abs_err is the largest over them
+    # ScanNet-discrete exact serve; ShapeNet serve and train, SemanticKITTI
+    # serve and train, ScanNet exact serve and train, ScanNet-discrete exact
+    # train). The times are those of the first path whose calls were held
+    # against the plain version; every path's are in "phases", and
+    # max_abs_err is the largest over them
     kernels = []
     for name in REPLACES:
         phases = results[name]
@@ -3007,13 +3546,10 @@ def main() -> int:
         "kernels": kernels,
         "kernel_busy_ms": busy_ms,
         "profile": profile_rows[:40],
-        **train,
-        "scannet": scannet,
-        "discrete": discrete,
-        "semantic3d": semantic3d,
-        "exact": exact,
-        "two_view": two_view,
-        "discrete_exact": discrete_exact,
+        **paths.pop("train"),
+        **paths,
+        "path_seconds": seconds,
+        "path_units": UNITS,
         "gather_bwd_checks": {
             path: {"calls": c, "reruns_bit_identical": r,
                    "bit_equal_to_cpu_plain": e}

@@ -2,8 +2,9 @@
 
 The flagship continuous-CRF point-convolution U-Net and the small
 family's ``CRFSegNet`` (continuous CRF at any number of mean-field steps),
-``BaselineDiscreteCRFSegNet`` and ``DualCRFSegNet`` (a discrete CRF head)
-served and trained on an NVIDIA H100, in the windowed neighbour regime
+``CRFSegNet_Part`` (ShapeNet part segmentation), ``BaselineDiscreteCRFSegNet``
+and ``DualCRFSegNet`` (a discrete CRF head), all named in ``get_model``'s
+registry, served and trained on an NVIDIA H100, in the windowed neighbour regime
 and in the exact one (``knn_bruteforce``, ``build_pyramid_device``), with
 every kernel written by hand in CUDA C++ (``csrc/``, built on first use by
 ``cuda_build``). On CPU tensors every kernel wrapper runs its plain
@@ -13,9 +14,9 @@ PyTorch version.
 from crfconv_tpu_torch.convert import from_flax
 from crfconv_tpu_torch.data.batch import RawBatch
 from crfconv_tpu_torch.data.pipeline import build_pyramid_device
-from crfconv_tpu_torch.models.point_conv_big import PointConvResNet
-from crfconv_tpu_torch.models.segnets import (
-    BaselineDiscreteCRFSegNet, BaselineSegNet, CRFSegNet, DualCRFSegNet,
+from crfconv_tpu_torch.models import (
+    BaselineDiscreteCRFSegNet, BaselineSegNet, CRFSegNet, CRFSegNet_Part,
+    DualCRFSegNet, PointConvResNet, get_model,
 )
 from crfconv_tpu_torch.ops.neighbors import NeighborMode, knn_bruteforce
 from crfconv_tpu_torch.ops.windowed import (
@@ -31,6 +32,7 @@ __all__ = [
     "BaselineDiscreteCRFSegNet",
     "BaselineSegNet",
     "CRFSegNet",
+    "CRFSegNet_Part",
     "CheckpointManager",
     "DualCRFSegNet",
     "NeighborMode",
@@ -41,6 +43,7 @@ __all__ = [
     "build_pyramid_device",
     "build_pyramid_windowed",
     "from_flax",
+    "get_model",
     "knn_bruteforce",
     "make_eval_step",
     "make_train_step",

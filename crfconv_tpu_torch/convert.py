@@ -1,6 +1,7 @@
 """Weight bridge: a flax variable tree (``PointConvResNet``, ``CRFSegNet``,
-``BaselineSegNet``, ``BaselineDiscreteCRFSegNet``, ``DualCRFSegNet``) onto
-the port's model of the same name.
+``CRFSegNet_Part``, ``BaselineSegNet``, ``BaselineDiscreteCRFSegNet``,
+``DualCRFSegNet``, ``EdgeListContinuousCRFConv``) onto the port's module of
+the same name.
 
 The port's module names are the flax names, so the mapping is structural:
 

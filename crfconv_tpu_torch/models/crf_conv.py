@@ -7,9 +7,14 @@ neighbours, the mean-field loop with C = c^T c, then an output MLP and
 concat-fusion with the skip features. ``GuideCRFConv`` (the small
 family's): linear + batch-norm unary and pairwise heads, the similarity
 with a radius mask, the same loop, a leaky-ReLU output.
+``EdgeListContinuousCRFConv``: the reference's edge-list CRF block on one
+cloud, its edges padded to dense neighbour lists (``edges_to_padded``); no
+model uses it.
 """
 
 from __future__ import annotations
+
+from typing import Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -115,3 +120,89 @@ class GuideCRFConv(nn.Module):
         return leaky_relu001(
             crf_mean_field(xh, s, nidx, self.c, self.steps, mode)
         )
+
+
+def edges_to_padded(
+    edge_index: torch.Tensor, num_nodes: int, max_degree: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Edge list [2, E] (rows: destination i, source j) -> dense neighbour
+    lists [num_nodes, max_degree] int32 and their validity mask (bool).
+
+    A destination's edges fill its slots in edge order (a stable sort by
+    destination); edges beyond ``max_degree`` are dropped, and empty slots
+    hold 0 with the mask False. Destinations must lie in [0, num_nodes).
+    """
+    i, j = edge_index[0].long(), edge_index[1]
+    if i.numel() and (int(i.min()) < 0 or int(i.max()) >= num_nodes):
+        raise ValueError(f"edge destinations outside [0, {num_nodes})")
+    i_s, order = torch.sort(i, stable=True)
+    j_s = j[order].to(torch.int32)
+    starts = torch.searchsorted(
+        i_s, torch.arange(num_nodes, dtype=i_s.dtype, device=i_s.device))
+    rank = torch.arange(i_s.shape[0], device=i_s.device) - starts[i_s]
+    keep = rank < max_degree
+    slot = (i_s * max_degree + rank)[keep]     # distinct: (i, rank) pairs
+    nbr = torch.zeros(num_nodes * max_degree, dtype=torch.int32,
+                      device=i_s.device)
+    nbr[slot] = j_s[keep]
+    mask = torch.zeros(num_nodes * max_degree, dtype=torch.bool,
+                       device=i_s.device)
+    mask[slot] = True
+    return (nbr.reshape(num_nodes, max_degree),
+            mask.reshape(num_nodes, max_degree))
+
+
+class EdgeListContinuousCRFConv(nn.Module):
+    """The reference's edge-list continuous Gaussian CRF block on one cloud
+    (x [N, C_u] unary input, y [N, C_p] guidance, pos [N, 3] for N,
+    edge_index [2, E] of (destination, source) rows): linear + batch-norm
+    unary and pairwise heads, the masked similarity and the mean-field loop
+    of the exact regime over the padded edges (a batch of one), then an
+    output MLP and concat-fusion with y. ``hidden_channels`` defaults to
+    ``out_channels // 4``, ``out_channels`` to ``pairwise_channels``. Weights
+    are drawn from ``generator`` (default: seeded with 0) with
+    torch.nn.Linear's init, batch norms at identity, c at the identity."""
+
+    def __init__(
+        self, unary_channels: int, pairwise_channels: int,
+        hidden_channels: Optional[int] = None,
+        out_channels: Optional[int] = None, steps: int = 1,
+        max_degree: int = 32, *, device="cuda",
+        generator: Optional[torch.Generator] = None,
+    ):
+        super().__init__()
+        out_c = pairwise_channels if out_channels is None else out_channels
+        hidden = out_c // 4 if hidden_channels is None else hidden_channels
+        dev = torch.device(device)
+        self.unary_channels = unary_channels
+        self.pairwise_channels = pairwise_channels
+        self.steps = steps
+        self.max_degree = max_degree
+        self.unary_net = MLP(unary_channels, hidden, None, device=dev)
+        self.pairwise_net = MLP(pairwise_channels, hidden, None, device=dev)
+        self.c = nn.Parameter(torch.eye(hidden, device=dev))
+        self.mlp = MLP(hidden, out_c, leaky_relu001, device=dev)
+        self.fusion_net = MLP(out_c + pairwise_channels, out_c,
+                              leaky_relu001, device=dev)
+        if generator is None:
+            generator = torch.Generator().manual_seed(0)
+        for m in (self.unary_net, self.pairwise_net, self.mlp,
+                  self.fusion_net):
+            m.reset_parameters(generator)
+
+    def forward(self, x: torch.Tensor, y: torch.Tensor, pos: torch.Tensor,
+                edge_index: torch.Tensor) -> torch.Tensor:
+        if x.shape[-1] != self.unary_channels:
+            raise ValueError(f"x has {x.shape[-1]} channels, expected "
+                             f"{self.unary_channels}")
+        if y.shape[-1] != self.pairwise_channels:
+            raise ValueError(f"y has {y.shape[-1]} channels, expected "
+                             f"{self.pairwise_channels}")
+        nbr, mask = edges_to_padded(edge_index, pos.shape[0], self.max_degree)
+        exact = NeighborMode("exact")
+        xu = self.unary_net(x)[None]
+        s_feat = self.pairwise_net(y)[None]
+        s = gaussian_similarity(s_feat, nbr[None], exact, mask=mask[None])
+        out = crf_mean_field(xu, s, nbr[None], self.c, self.steps, exact)[0]
+        out = self.mlp(out)
+        return self.fusion_net(torch.cat([out, y], dim=-1))

@@ -6,8 +6,10 @@ with a log-softmax output. The single-head nets (``BaselineSegNet``,
 ``CRFSegNet``) return log p; the discrete-CRF nets
 (``BaselineDiscreteCRFSegNet``, ``DualCRFSegNet``) run a discrete CRF
 (``models/discrete_crf.py``) over the predicted probabilities and return
-(log p, log q) for the two-head loss. Module names follow the flax tree
-(``convert.from_flax``). The part-segmentation net is not ported yet.
+(log p, log q) for the two-head loss. ``CRFSegNet_Part`` (ShapeNet part
+segmentation) joins a one-hot of each cloud's object category to every
+point's features before its classifier. Module names follow the flax tree
+(``convert.from_flax``).
 """
 
 from __future__ import annotations
@@ -31,6 +33,8 @@ from crfconv_tpu_torch.ops.neighbors import NeighborMode, knn_bruteforce
 # the discrete CRF's neighbourhood: the reference's radius_graph(r = 0.2,
 # max_num_neighbors = 32) as kNN(32) plus the radius mask in DiscreteCRFConv
 DISCRETE_CRF_K = 32
+# ShapeNet's object categories, one-hot before CRFSegNet_Part's classifier
+NUM_SHAPENET_CATEGORIES = 16
 
 
 def _discrete_crf_idx(pos: torch.Tensor, mode: NeighborMode) -> torch.Tensor:
@@ -76,9 +80,9 @@ class _SmallSegNet(nn.Module):
 
     def _init(self, feature: nn.Module, n_classes: int, device,
               generator: Optional[torch.Generator],
-              hidden: int = 128) -> None:
+              hidden: int = 128, in_features: int = 64) -> None:
         self.feature = feature
-        self.classifier = _Classifier(64, hidden, n_classes, device)
+        self.classifier = _Classifier(in_features, hidden, n_classes, device)
         if generator is None:
             generator = torch.Generator().manual_seed(0)
         for m in self.modules():
@@ -118,6 +122,45 @@ class CRFSegNet(_SmallSegNet):
         dev = torch.device(device)
         self._init(SmallCRFNet(in_channels, steps, device=dev), n_classes,
                    dev, generator)
+
+
+def category_one_hot(category: torch.Tensor, n: int,
+                     dtype: torch.dtype) -> torch.Tensor:
+    """[B] category ids -> [B, n] one-hot rows; an id outside [0, n) gives
+    a row of zeros, as ``jax.nn.one_hot`` does (``F.one_hot`` raises)."""
+    ids = torch.arange(n, device=category.device)
+    return (category.long()[:, None] == ids).to(dtype)
+
+
+class CRFSegNet_Part(_SmallSegNet):
+    """ShapeNet part segmentation: the small continuous-CRF net, a one-hot
+    of each cloud's object category (``batch.category`` [B], 16 categories)
+    joined to every point's 64 features, and a classifier of hidden width
+    256 over the 80. Weights as :class:`CRFSegNet`'s."""
+
+    def __init__(self, n_classes: int = 50, in_channels: int = 6,
+                 steps: int = 1, *, device="cuda",
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        dev = torch.device(device)
+        self._init(SmallCRFNet(in_channels, steps, device=dev), n_classes,
+                   dev, generator, hidden=256,
+                   in_features=64 + NUM_SHAPENET_CATEGORIES)
+
+    def forward(
+        self, batch: PointBatch, mode: NeighborMode = NeighborMode(),
+        dropout_generator: Optional[torch.Generator] = None,
+    ) -> torch.Tensor:
+        del dropout_generator
+        if batch.category is None:
+            raise ValueError("CRFSegNet_Part needs batch.category, the "
+                             "object category of each cloud")
+        x = self.feature(batch, mode)
+        onehot = category_one_hot(batch.category.to(x.device),
+                                  NUM_SHAPENET_CATEGORIES, x.dtype)
+        onehot = onehot[:, None, :].expand(*x.shape[:2], -1)
+        x = self.classifier(torch.cat([x, onehot], dim=-1))
+        return torch.log_softmax(x, dim=-1)
 
 
 class _DiscreteSegNet(_SmallSegNet):

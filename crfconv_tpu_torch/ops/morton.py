@@ -2,7 +2,9 @@
 
 Counterpart of ``crfconv_tpu/ops/morton.py``. Codes are computed in int64
 (PyTorch has little uint32 support); the 30-bit code fits either way, so
-the order is the same.
+the order is the same. The curve can be turned: fixed orientations for the
+multi-view eval (``view_rotation``), random ones for train-time jitter
+(``random_rotation``).
 """
 
 from __future__ import annotations
@@ -72,3 +74,27 @@ def view_rotation(view: int) -> Optional[torch.Tensor]:
     for _ in range(view - 1):
         r = rz90 @ r
     return torch.from_numpy(r)
+
+
+def quaternion_rotation(q: torch.Tensor) -> torch.Tensor:
+    """The rotation matrix [3, 3] of the quaternion (w, x, y, z) = q / |q|
+    (float32)."""
+    q = q.to(torch.float32)
+    w, x, y, z = (q / torch.linalg.vector_norm(q)).unbind()
+    return torch.stack([
+        torch.stack([1 - 2 * (y * y + z * z), 2 * (x * y - w * z),
+                     2 * (x * z + w * y)]),
+        torch.stack([2 * (x * y + w * z), 1 - 2 * (x * x + z * z),
+                     2 * (y * z - w * x)]),
+        torch.stack([2 * (x * z - w * y), 2 * (y * z + w * x),
+                     1 - 2 * (x * x + y * y)]),
+    ])
+
+
+def random_rotation(generator: torch.Generator) -> torch.Tensor:
+    """A uniform random rotation [3, 3] on ``generator``'s device: a normal
+    4-vector drawn from ``generator``, normalised, as a quaternion. The
+    JAX package draws its vector from a key, so the two packages' draws
+    differ; the matrix of a given vector is the same formula."""
+    q = torch.randn(4, generator=generator, device=generator.device)
+    return quaternion_rotation(q)

@@ -24,10 +24,12 @@ class Predictor:
     """Windowed inference runner for one device.
 
     Args:
-      model:  a ``PointConvResNet`` or ``CRFSegNet`` (any module taking
-              (PointBatch, mode) and returning per-point class scores:
-              logits, or log-probabilities for the small family). It is
-              moved to ``device`` and put in eval mode.
+      model:  a ``PointConvResNet``, ``CRFSegNet`` or ``CRFSegNet_Part``
+              (any module taking (PointBatch, mode) and returning per-point
+              class scores: logits, or log-probabilities for the small
+              family; ``CRFSegNet_Part`` also takes each cloud's
+              ``category``). It is moved to ``device`` and put in eval
+              mode.
       mode:   window geometry and kNN selection; the regime is always
               windowed.
       device: where the pyramid and the forward run.
@@ -45,12 +47,13 @@ class Predictor:
         self.seed = seed
 
     def prepare(
-        self, pos, feats, offsets: Optional[Sequence] = None,
+        self, pos, feats, offsets: Optional[Sequence] = None, category=None,
     ) -> Tuple[PointBatch, torch.Tensor]:
         """The request's pyramid: [B, N, 3] positions + [B, N, C_in]
         features -> (the batch in Morton order, ``order`` [B, N], the
         Morton permutation). ``offsets`` injects the per-scale subsampling
-        offsets instead of drawing them."""
+        offsets instead of drawing them; ``category`` ([B] object
+        categories) rides in the batch for ``CRFSegNet_Part``."""
         pos = torch.as_tensor(pos, dtype=torch.float32, device=self.device)
         feats = torch.as_tensor(feats, dtype=torch.float32, device=self.device)
         gen = None
@@ -62,7 +65,10 @@ class Predictor:
             device=self.device,
         )
         x = torch.take_along_dim(feats, order[..., None], dim=1)
-        return PointBatch(x=x, y=None, scales=scales), order
+        if category is not None:
+            category = torch.as_tensor(category, device=self.device)
+        return PointBatch(x=x, y=None, scales=scales,
+                          category=category), order
 
     @staticmethod
     def restore(out: torch.Tensor, order: torch.Tensor) -> torch.Tensor:
@@ -74,14 +80,17 @@ class Predictor:
 
     @torch.inference_mode()
     def predict_logits(
-        self, pos, feats, offsets: Optional[Sequence] = None,
+        self, pos, feats, offsets: Optional[Sequence] = None, category=None,
     ) -> torch.Tensor:
         """[B, N, 3] positions + [B, N, C_in] features -> [B, N, n_classes]
         scores (the model's output: logits or log-probabilities) in the
-        input point order. ``offsets`` as in :meth:`prepare`."""
-        batch, order = self.prepare(pos, feats, offsets)
+        input point order. ``offsets`` and ``category`` as in
+        :meth:`prepare`."""
+        batch, order = self.prepare(pos, feats, offsets, category)
         return self.restore(self.model(batch, self.mode), order)
 
-    def predict(self, pos, feats, offsets: Optional[Sequence] = None):
+    def predict(self, pos, feats, offsets: Optional[Sequence] = None,
+                category=None):
         """[B, N, 3] + [B, N, C_in] -> [B, N] int64 class labels."""
-        return self.predict_logits(pos, feats, offsets).argmax(dim=-1)
+        return self.predict_logits(pos, feats, offsets,
+                                   category).argmax(dim=-1)

@@ -22,7 +22,7 @@ from typing import Optional, Sequence
 import torch
 
 from crfconv_tpu_torch.data.batch import PointBatch, RawBatch
-from crfconv_tpu_torch.ops.morton import view_rotation
+from crfconv_tpu_torch.ops.morton import random_rotation, view_rotation
 from crfconv_tpu_torch.ops.neighbors import NeighborMode
 from crfconv_tpu_torch.ops.windowed import build_pyramid_windowed
 from crfconv_tpu_torch.train.losses import segmentation_loss
@@ -101,12 +101,21 @@ def build_windowed_batch(
     mode: NeighborMode = TRAIN_MODE,
     curve_rot=None,
     return_order: bool = False,
+    curve_jitter: bool = False,
 ):
     """RawBatch -> Morton-sorted PointBatch with a windowed pyramid, built
     on the device of ``raw.pos``. The subsampling offsets are drawn from
     ``generator`` unless ``offsets`` gives them; ``curve_rot`` turns the
-    Morton curve (``build_pyramid_windowed``). With ``return_order`` also
-    returns the Morton permutation."""
+    Morton curve (``build_pyramid_windowed``). ``curve_jitter`` turns it by
+    a random rotation instead, drawn from ``generator`` before the offsets
+    (train-time augmentation: each step's windows miss other cross-tile
+    neighbours). With ``return_order`` also returns the Morton
+    permutation."""
+    if curve_jitter:
+        if generator is None:
+            raise ValueError("curve_jitter draws its rotation from a "
+                             "generator")
+        curve_rot = random_rotation(generator)
     order, scales = build_pyramid_windowed(
         raw.pos, generator=generator, offsets=offsets, tile=mode.tile,
         pad=mode.pad, knn_exact=mode.knn_exact, curve_rot=curve_rot,
@@ -154,6 +163,7 @@ def make_train_step(
     ignore_index: int = -1,
     windowed: bool = True,
     label_offset: int = 0,
+    curve_jitter: bool = False,
 ):
     """The train step: pyramid (windowed) -> train-mode forward -> weighted
     CE -> backward -> SGD step -> confusion matrix.
@@ -163,7 +173,10 @@ def make_train_step(
     built, and ``mode`` must name its regime (``NeighborMode("exact")``
     for the exact regime). ``label_offset`` is subtracted from the labels
     before the loss and the confusion matrix (the reference's ``y - 1``
-    for datasets whose label 0 is unlabeled).
+    for datasets whose label 0 is unlabeled). ``curve_jitter`` turns each
+    step's Morton curve by a random rotation drawn from the step's
+    generator (``build_windowed_batch``); as in the JAX package it acts in
+    the windowed regime only.
     """
     mode = _step_mode(mode, windowed)
 
@@ -172,13 +185,15 @@ def make_train_step(
         offsets: Optional[Sequence] = None,
     ) -> dict:
         """One step on ``state``, updated in place. ``generator`` (on the
-        batch's device) draws the pyramid's subsampling offsets, unless
-        ``offsets`` gives them, and then the dropout mask. Returns the
-        loss and the [C, C] confusion matrix, left on the device."""
+        batch's device) draws the curve's rotation where ``curve_jitter``
+        is on, the pyramid's subsampling offsets, unless ``offsets`` gives
+        them, and then the dropout mask. Returns the loss and the [C, C]
+        confusion matrix, left on the device."""
         model = state.model
         model.train()
         if windowed:
-            batch = build_windowed_batch(batch, generator, offsets, mode)
+            batch = build_windowed_batch(batch, generator, offsets, mode,
+                                         curve_jitter=curve_jitter)
         labels = batch.y - label_offset
         outputs = model(batch, mode, dropout_generator=generator)
         loss = segmentation_loss(outputs, labels, class_weights, ignore_index)

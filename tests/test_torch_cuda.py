@@ -26,7 +26,12 @@ on 512- and 128-wide windows with duplicated points. K4 runs every width
 from 1 to 32, K from 1 to 300 (at 300 without its shared table) and pads
 to 8000, rows off 16-byte alignment, within rtol 1e-4, atol 1e-5 and
 rerun-identical; K9 is bit-equal at K 1 to 33 on aligned and
-unaligned slabs.
+unaligned slabs. ShapeNet's and SemanticKITTI's shapes: K2 on clouds of 4
+to 32 points (k 8 on 8 points: a window of mostly sentinel rows), K9-K12
+on clouds narrower than a 64-row tile (K 7 on 8 rows, and the four CRF
+layers of CRFSegNet_Part at B16 x 2048, the coarsest 32 rows wide at
+width 256), each through ten steps and the core's backward; K7 and K8 at
+the flagship's training shapes of B8 x 65536 points.
 
 Needs an NVIDIA GPU and nvcc; skipped otherwise. On the card run
 
@@ -1260,3 +1265,133 @@ def test_knn_bruteforce_self_first_under_tf32(dev):
     d = torch.cdist(pos.double(), pos.double())
     exact = torch.topk(d, 16, largest=False).indices
     assert float((idx.long() == exact).float().mean()) >= 0.999
+
+
+# --------------------------------------------------------------------------
+# ShapeNet's small clouds and SemanticKITTI's large ones
+# --------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("exact", [True, False])
+@pytest.mark.parametrize("n,k,bipartite", [(8, 8, False), (8, 1, True),
+                                            (32, 16, False), (32, 1, True)])
+def test_window_knn_tiny_clouds(dev, n, k, bipartite, exact):
+    """K2 at ShapeNet's coarse scales (B16 x 2048: 32 and 8 points, k
+    clamped to 8 on the last; the up-search from 4 or 8 coarse points): one
+    window of mostly sentinel rows a cloud."""
+    rng = np.random.default_rng(20)
+    pos = _sorted_cloud(rng, 16, n, dev)
+    if bipartite:
+        src = pos[:, ::2].contiguous()
+        got = windowed.window_knn(src, k, pos, exact=exact)
+        ref = windowed.window_knn_plain(src, k, pos, exact=exact)
+    else:
+        got = windowed.window_knn(pos, k, exact=exact)
+        ref = windowed.window_knn_plain(pos, k, exact=exact)
+        assert torch.equal(got[:, :, 0],
+                           torch.arange(n, device=dev).expand(16, n).int())
+    assert torch.equal(got, ref)
+    assert windowed.check_window_consistency(
+        got.cpu().numpy(), (src if bipartite else pos).shape[1]) == 1.0
+
+
+SHAPENET_CRF_SHAPES = [   # (b, n, h, k): below a tile, then the 4 layers
+    (16, 8, 256, 7), (16, 2048, 32, 15), (16, 512, 64, 15),
+    (16, 128, 128, 15), (16, 32, 256, 15),
+]
+
+
+@pytest.mark.parametrize("b,n,h,k", SHAPENET_CRF_SHAPES)
+def test_crf_kernels_shapenet_shapes(dev, b, n, h, k):
+    """K9 and K10 (ten steps, the saved stack) bit-equal, K11's outputs as
+    in test_crf_iterate_bwd_and_neighbor_dot_match_plain, K12 within its
+    mass and rerun-identical, at every width ShapeNet's CRFs run."""
+    rng = np.random.default_rng(21)
+    z, zp, s, idx, m = _crf_inputs(rng, b, n, h, k, n, dev)
+    col = crf_core.crf_operator(idx)
+    assert torch.equal(col, crf_core.crf_operator_plain(idx))
+    xs = torch.empty((10, b, n, h), device=dev)
+    got = crf_core.crf_iterate_steps(z, zp, s, col, m, 10, xs=xs)
+    xs_ref = torch.empty_like(xs)
+    ref = crf_core.crf_iterate_steps_plain(z, zp, s, col, m, 10, xs_ref)
+    assert torch.equal(got, ref) and torch.equal(xs, xs_ref)
+    lam = torch.randn(b, n, h, device=dev)
+    dzp = torch.randn(b, n, h, device=dev)
+    dM = torch.randn(h, h, device=dev)
+    out = crf_core.crf_iterate_bwd(lam, xs[3], s, col, m, dzp, dM)
+    again = crf_core.crf_iterate_bwd(lam, xs[3], s, col, m, dzp, dM)
+    assert all(torch.equal(a, r) for a, r in zip(out, again))
+    ref = crf_core.crf_iterate_bwd_plain(lam, xs[3], s, col, m, dzp, dM)
+    assert torch.equal(out[1], ref[1]) and torch.equal(out[2], ref[2])
+    cpu = [t.cpu() for t in (lam, xs[3], s, col, m, dzp, dM)]
+    assert torch.equal(out[0].cpu(), crf_core.crf_iterate_bwd_plain(*cpu)[0])
+    scale = float((dM.abs() + crf_core._message(xs[3].abs(), s, col)
+                   .reshape(-1, h).T @ lam.abs().reshape(-1, h)).max())
+    assert float((out[3] - ref[3]).abs().max()) <= 1e-5 * scale + 1e-6
+    _check_neighbor_dot(torch.randn(10, b, n, h, device=dev), xs, col)
+
+
+@pytest.mark.parametrize("b,n,h,k", SHAPENET_CRF_SHAPES[:1]
+                         + SHAPENET_CRF_SHAPES[-1:])
+def test_crf_core_backward_shapenet_shapes(dev, b, n, h, k):
+    """The fused core's Function at ten steps on clouds narrower than a
+    tile, against autograd through the plain versions, as in
+    test_crf_core_backward_matches_plain_autograd."""
+    rng = np.random.default_rng(22)
+    z, zp, s, idx, m = _crf_inputs(rng, b, n, h, k, n, dev)
+    ts = [t.clone().requires_grad_() for t in (z, zp, s, m)]
+    w = torch.randn(b, h, n, device=dev)
+    out = crf_core.crf_core(ts[0], ts[1], ts[2], idx, ts[3], 10)
+    got = torch.autograd.grad((out.transpose(1, 2) * w).sum(), ts,
+                              retain_graph=True)
+    again = torch.autograd.grad((out.transpose(1, 2) * w).sum(), ts)
+    for a, r in zip(got, again):
+        assert torch.equal(a, r)
+    out_ref = crf_core.crf_core_plain(ts[0], ts[1], ts[2], idx, ts[3], 10)
+    assert torch.equal(out, out_ref)
+    ref = torch.autograd.grad((out_ref.transpose(1, 2) * w).sum(), ts)
+    for name, a, r in zip(("dz", "dzp", "ds", "dM"), got, ref):
+        torch.testing.assert_close(a, r, rtol=1e-4,
+                                   atol=1e-5 * float(r.abs().max()),
+                                   msg=name)
+
+
+def test_weighted_reduce_kitti_step(dev):
+    """K7 at the flagship's fused layers of a SemanticKITTI train step (B8
+    x 65536 points, K 16, width 8): bit-equal, and its backward's K8 call
+    bit-equal to the plain version on CPU copies."""
+    rng = np.random.default_rng(23)
+    b, n, k, h = 8, 65536, 16, 8
+    x = torch.randn(b, n, h, device=dev)
+    u = torch.randn(b, n, k, h, device=dev)
+    idx = windowed.window_knn(_sorted_cloud(rng, b, n, dev), k)
+    out, xg = windowed.windowed_weighted_reduce(x, u, idx)
+    out_ref, xg_ref = windowed.windowed_weighted_reduce_plain(x, u, idx)
+    assert torch.equal(xg, xg_ref) and torch.equal(out, out_ref)
+    g = torch.randn(b, n, k, h, device=dev)
+    got = windowed.windowed_gather_bwd(g, idx, n)
+    assert torch.equal(got, windowed.windowed_gather_bwd(g, idx, n))
+    assert torch.equal(got.cpu(), windowed.windowed_gather_bwd_plain(
+        g.cpu(), idx.cpu(), n))
+
+
+@pytest.mark.parametrize("m,n,f", [(65536, 65536, 35), (16384, 65536, 19),
+                                   (65536, 16384, 64)])
+def test_gather_bwd_kitti_step(dev, m, n, f):
+    """K8 at SemanticKITTI's training shapes (B8 x 65536): same-scale,
+    strided (the pyramid's sub_idx) and upsample gathers, bit-equal to the
+    plain version on CPU copies and rerun-identical."""
+    rng = np.random.default_rng(24)
+    b = 8
+    pos = _sorted_cloud(rng, b, max(m, n), dev)
+    if m == n:
+        idx = windowed.window_knn(pos, 16)
+    elif m < n:
+        idx = windowed.window_knn(pos, 16)[:, ::n // m].contiguous()
+    else:
+        idx = windowed.window_knn(pos[:, ::m // n].contiguous(), 1, pos)
+    g = torch.randn(b, m, idx.shape[2], f, device=dev)
+    got = windowed.windowed_gather_bwd(g, idx, n)
+    assert torch.equal(got, windowed.windowed_gather_bwd(g, idx, n))
+    assert torch.equal(got.cpu(), windowed.windowed_gather_bwd_plain(
+        g.cpu(), idx.cpu(), n))

@@ -164,17 +164,17 @@ def test_crf_conv_matches(steps, fused, monkeypatch):
     np.testing.assert_allclose(got, ref, rtol=2e-4, atol=2e-4)
 
 
-@pytest.fixture(scope="module")
-def narrow_flagship():
-    """A narrow flagship (B2 x 1024) on a JAX-built pyramid, its variables
-    with non-trivial batch statistics, and its JAX logits."""
+def _flagship_case(c_in: int, n_classes: int):
+    """A narrow flagship (B2 x 1024) with ``c_in`` input channels and
+    ``n_classes`` classes on a JAX-built pyramid, its variables with
+    non-trivial batch statistics, and its JAX logits."""
     rng = np.random.default_rng(3)
     pos = rng.random((2, 1024, 3)).astype(np.float32)
-    feats = rng.random((2, 1024, 6)).astype(np.float32)
+    feats = rng.random((2, 1024, c_in)).astype(np.float32)
     order, scales = _pyramid(pos, jax.random.PRNGKey(1))
     x = jnp.take_along_axis(jnp.asarray(feats), order[..., None], axis=1)
     batch = JBatch(x=x, y=None, scales=scales)
-    model = JResNet(n_classes=13, use_crf=True, steps=1, layers=NARROW)
+    model = JResNet(n_classes=n_classes, use_crf=True, steps=1, layers=NARROW)
     with neighbor_mode("windowed"), jax.default_matmul_precision("highest"):
         variables = _init(model, RNGS, batch)
         variables = {**variables,
@@ -183,22 +183,46 @@ def narrow_flagship():
     return variables, x, scales, np.asarray(logits)
 
 
-@pytest.mark.parametrize("fused", [False, True])
-def test_flagship_logits_match(narrow_flagship, fused, monkeypatch):
-    variables, x, scales, ref = narrow_flagship
+@pytest.fixture(scope="module")
+def narrow_flagship():
+    """The narrow flagship at S3DIS's 6 input channels and 13 classes."""
+    return _flagship_case(6, 13)
+
+
+@pytest.fixture(scope="module")
+def kitti_flagship():
+    """The narrow flagship at SemanticKITTI's 4 input channels and 19
+    classes."""
+    return _flagship_case(4, 19)
+
+
+def _check_flagship_logits(case, c_in, n_classes, fused, monkeypatch):
+    variables, x, scales, ref = case
     if fused:   # route every eligible layer through the K3/K4 plain versions
         monkeypatch.setattr(conv, "FUSED_MIN_ROWS", 0)
         monkeypatch.setattr(crf_sim, "SIM_MIN_ROWS", 0)
     model = _load(
-        PointConvResNet(13, 6, use_crf=True, steps=1, layers=NARROW,
+        PointConvResNet(n_classes, c_in, use_crf=True, steps=1, layers=NARROW,
                         device="cpu"),
         variables,
     )
     with torch.no_grad():
         got = model(PointBatch(x=_t(x), y=None, scales=_scales(scales)),
                     WINDOWED).numpy()
-    assert got.shape == ref.shape == (2, 1024, 13)
+    assert got.shape == ref.shape == (2, 1024, n_classes)
     np.testing.assert_allclose(got, ref, rtol=1e-3, atol=1e-4)
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_flagship_logits_match(narrow_flagship, fused, monkeypatch):
+    _check_flagship_logits(narrow_flagship, 6, 13, fused, monkeypatch)
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_kitti_flagship_logits_match(kitti_flagship, fused, monkeypatch):
+    """SemanticKITTI's flagship: 4 input channels (x, y, z, remission), 19
+    classes."""
+    _check_flagship_logits(kitti_flagship, 4, 19, fused, monkeypatch)
 
 
 def test_from_flax_covers_every_tensor(narrow_flagship):
