@@ -140,8 +140,36 @@
 26. ScanNet-discrete exact training (BaselineDiscreteCRFSegNet(20 classes,
     steps=10), B16 x 8192), as in 25 (K6 11 launches a step with the CRF's
     kNN(32), the leaky ReLU's backward 37).
+27. S3DIS training fed by the data layer: three rooms of 120,000 points
+    written as S3DIS's raw files in a temporary directory (a storage room
+    small enough that its crops are padded with duplicate points),
+    processed by S3DISRoomDataset (numpy parse, the native grid subsample,
+    grid 0.04) and cropped by the possibility sampler; MultiscaleLoader
+    (emit "raw", prefetch 2, the train transform, pinned copies on a side
+    stream) feeds the flagship's windowed train step at B8 x 8192: a
+    recorded step whose K1, K2, K7, K8 and leaky-ReLU backward calls are
+    held against their plain versions (K2 bit-equal); LOADER_STEPS (10)
+    loader-fed steps with exact launch counts (K1 18, K2 10, K7 2, K8 18,
+    K15 47), a finite loss and every parameter moved; the step's event ms fed
+    by the loader against the same batches placed on the card beforehand
+    (fed, placed, placed, fed); a profiled loader-fed step and peak memory;
+    a loader without prefetch, restored to the first one's starting state,
+    gives every batch bit for bit; the loader's host ms a batch and its
+    H2D copy ms.
+28. ShapeNet training fed by the data layer: the 16 categories' shapes
+    (2,600-3,000 points) written as ShapeNet's raw files, read by
+    ShapeNetNormalDataset and fed by MultiscaleLoader with the host
+    pyramid of ShapeNetConfig (kernel sizes 32, 16, 8, 8, 8, ratios 4, 2,
+    2, 2, 2, k_up 3, dilations 1, 2, 4, 2, 1; emit "pyramid", prefetch 2)
+    to CRFSegNet_Part(50 classes, steps=10) in the exact regime at B8 x
+    2048 with the category a cloud: the pyramid's column 0 self on every
+    row, every index in range, neighbours outside the plain kNN(k) only at
+    the dilated scales; the leaky ReLU's backward, the path's one kernel,
+    held on a recorded step and counted exactly (41 a step); the steps as
+    in 27; build_pyramid's host ms.
 
-Prints the card's name and power limit, one JSON line of kernel results
+The data phases print which host backend ran (the native library's
+file). Prints the card's name and power limit, one JSON line of kernel results
 and, last, {"ok": true, "device": {...}}. Exits non-zero, without that
 last line, if any check fails or no GPU is present. Full results go to
 chiprun_out/chip_smoke.json.
@@ -824,7 +852,8 @@ BWD_CHECKS = {}
 # copies: index_add_ on the CPU adds in index order, as K8 does; the
 # discrete step's 5 GB calls and SemanticKITTI's (B8 x 65536, held on the
 # CPU by tests/test_torch_cuda.py) keep the rounding bound alone
-BWD_CPU_PATHS = ("flagship train", "scannet train", "shapenet train")
+BWD_CPU_PATHS = ("flagship train", "scannet train", "shapenet train",
+                 "s3dis_loader train")
 
 
 def check_gather_bwd(kernel, args, kwargs, got, path) -> None:
@@ -3347,6 +3376,466 @@ def discrete_exact_train_phase(dev, rng, out_dir: str, results: dict) -> dict:
             **train}
 
 
+# --------------------------------------------------------------------------
+# loader-fed training: synthetic dataset files, the readers, the loader
+# --------------------------------------------------------------------------
+
+ROOM_POINTS = 120_000
+LOADER_STEPS = 10   # loader-fed steps a round (fed, placed, placed, fed)
+# (area, room, box size in m, offset of its corner, furniture: (class, low
+# corner, high corner, points)); the storage room subsamples to fewer than
+# 8192 points at 0.04 m, so its crops are padded with duplicate points
+S3DIS_ROOMS = (
+    ("Area_1", "office_1", (6.0, 5.0, 3.0), (12.345, 7.031, 0.512), (
+        ("table", (1.0, 1.0, 0.0), (2.6, 1.8, 0.75), 12000),
+        ("chair", (1.5, 2.1, 0.0), (2.0, 2.6, 0.9), 4000),
+        ("bookcase", (0.0, 3.6, 0.0), (0.4, 4.8, 2.0), 10000),
+        ("board", (2.0, 4.95, 1.0), (4.0, 5.0, 2.2), 4000))),
+    ("Area_1", "storage_1", (1.0, 1.0, 2.0), (3.25, -4.5, 0.512), (
+        ("clutter", (0.1, 0.1, 0.0), (0.6, 0.5, 0.8), 6000),)),
+    ("Area_5", "office_2", (6.0, 5.0, 3.0), (-20.0, 3.3, 0.125), (
+        ("table", (3.0, 2.0, 0.0), (4.6, 2.8, 0.75), 12000),
+        ("sofa", (0.2, 0.2, 0.0), (2.2, 1.1, 0.8), 8000))),
+)
+S3DIS_COLORS = {
+    "ceiling": (200, 200, 190), "floor": (120, 100, 80),
+    "wall": (180, 170, 160), "table": (140, 90, 50), "chair": (40, 40, 60),
+    "bookcase": (90, 60, 30), "board": (240, 240, 240),
+    "sofa": (60, 90, 140), "clutter": (150, 60, 60),
+}
+# launches per loader-fed S3DIS step: the flagship's train step
+S3DIS_LOADER_PER_STEP = EXPECTED_PER_STEP
+# per exact-regime ShapeNet step on the host pyramid: the leaky ReLU's
+# backward once per activation of CRFSegNet_Part (counted on a CPU step by
+# tests/test_torch_chip_smoke_checks.py), no other kernel (the host builds
+# the pyramid, the CRFs are the scans)
+SHAPENET_EXACT_PER_STEP = {"leaky_relu_bwd": 41}
+
+
+def box_surface(rng, lo, hi, n: int):
+    """``n`` points uniform on the surface of the box [lo, hi] and each
+    point's face (2 * axis + side: 4 the floor, 5 the ceiling)."""
+    lo, hi = np.asarray(lo, np.float64), np.asarray(hi, np.float64)
+    d = hi - lo
+    area = np.array([d[1] * d[2], d[0] * d[2], d[0] * d[1]])
+    face = rng.choice(6, n, p=np.repeat(area, 2) / (2 * area.sum()))
+    p = lo + rng.random((n, 3)) * d
+    axis = face // 2
+    p[np.arange(n), axis] = np.where(face % 2 == 1, hi[axis], lo[axis])
+    return p, face
+
+
+def write_s3dis_rooms(root: str, rng) -> None:
+    """S3DIS's raw layout: each room ROOM_POINTS points on its box's walls,
+    floor and ceiling and on box furniture, one ``<class>_<i>.txt`` of
+    ``x y z r g b`` rows (millimetres, as the dataset's files) a part."""
+    raw = os.path.join(root, "raw")
+    rels = {}
+    for area, room, size, offset, furniture in S3DIS_ROOMS:
+        rel = f"{area}/{room}/Annotations"
+        anno = os.path.join(raw, "Stanford3dDataset_v1.2_Aligned_Version",
+                            rel)
+        os.makedirs(anno)
+        shell, face = box_surface(
+            rng, (0, 0, 0), size, ROOM_POINTS - sum(f[3] for f in furniture))
+        parts = [("floor", shell[face == 4]), ("ceiling", shell[face == 5])]
+        parts += [("wall", shell[face == f]) for f in range(4)]
+        parts += [(cls, box_surface(rng, lo, hi, n)[0])
+                  for cls, lo, hi, n in furniture]
+        seen = {}
+        for cls, pts in parts:
+            seen[cls] = seen.get(cls, 0) + 1
+            rgb = np.clip(np.asarray(S3DIS_COLORS[cls]) + rng.normal(
+                0, 12, (len(pts), 3)), 0, 255)
+            np.savetxt(os.path.join(anno, f"{cls}_{seen[cls]}.txt"),
+                       np.column_stack([pts + offset, rgb]),
+                       fmt="%.3f %.3f %.3f %d %d %d")
+        rels.setdefault(area, []).append(rel)
+    for area, names in rels.items():
+        with open(os.path.join(raw, f"{area}_anno.txt"), "w") as f:
+            f.write("\n".join(names) + "\n")
+
+
+def write_shapenet_shapes(root: str, rng, shapes: int = 4) -> None:
+    """ShapeNet's normal layout: the 16 categories, ``shapes`` shapes each
+    (two train, one val, one test) of 2,600-3,000 points on an ellipsoid,
+    ``x y z nx ny nz part`` rows, the parts bands of height in the
+    category's own range, and the shuffled split lists."""
+    from crfconv_tpu_torch.train.metrics import (
+        SHAPENET_OBJ_CLASSES, SHAPENET_SEG_CLASSES,
+    )
+
+    raw = os.path.join(root, "raw")
+    os.makedirs(os.path.join(raw, "train_test_split"))
+    names = sorted(SHAPENET_OBJ_CLASSES, key=SHAPENET_OBJ_CLASSES.get)
+    with open(os.path.join(raw, "synsetoffset2category.txt"), "w") as f:
+        f.writelines(f"{name}\t{i:08d}\n" for i, name in enumerate(names))
+    lists = {"train": [], "val": [], "test": []}
+    for i, name in enumerate(names):
+        synset = f"{i:08d}"
+        os.makedirs(os.path.join(raw, synset))
+        parts = np.asarray(SHAPENET_SEG_CLASSES[name])
+        for j in range(shapes):
+            n = int(rng.integers(2600, 3001))
+            axes = rng.uniform(0.2, 0.8, 3)
+            u = rng.standard_normal((n, 3))
+            pos = u / np.linalg.norm(u, axis=1, keepdims=True) * axes
+            normal = pos / axes ** 2
+            normal /= np.linalg.norm(normal, axis=1, keepdims=True)
+            band = np.minimum(((pos[:, 2] / axes[2] + 1) / 2 * len(parts))
+                              .astype(int), len(parts) - 1)
+            sid = f"shape{j:04d}"
+            np.savetxt(os.path.join(raw, synset, sid + ".txt"),
+                       np.column_stack([pos, normal, parts[band]]),
+                       fmt="%.6f %.6f %.6f %.6f %.6f %.6f %d")
+            split = ("train", "train", "val", "test")[j % 4]
+            lists[split].append(f"shape_data/{synset}/{sid}")
+    for split, entries in lists.items():
+        with open(os.path.join(raw, "train_test_split",
+                               f"shuffled_{split}_file_list.json"), "w") as f:
+            json.dump(entries, f)
+
+
+def batches_equal(a, b) -> bool:
+    """Two batches of tensors (a RawBatch or PointBatch each) hold the same
+    values, bit for bit."""
+    from crfconv_tpu_torch.data.loader import batch_tensors
+
+    ta, tb = batch_tensors(a), batch_tensors(b)
+    return len(ta) == len(tb) and all(
+        x.dtype == y.dtype and torch.equal(x, y) for x, y in zip(ta, tb))
+
+
+def pyramid_checks(scales, kernel_sizes, dilations, knn) -> dict:
+    """A host pyramid's invariants, on host copies: scale 0's column 0 is
+    the point itself on every row; every index lies in its scale; and at
+    each scale the share of neighbour entries outside the plain kNN(k) of
+    the point (``knn(pos, k)`` -> [B, N, k]) is 0 where the dilation is 1
+    and above 0 where it is larger. Returns the self share, whether every
+    index is in range and the share outside kNN(k) at each scale."""
+    out = {"in_range": True, "outside_knn": []}
+    for s, sc in enumerate(scales):
+        pos = sc.pos.cpu().numpy()
+        nbr = sc.neighbor_idx.cpu().numpy()
+        n, n_sub = pos.shape[1], sc.sub_idx.shape[1]
+        up = sc.up_idx.cpu().numpy()
+        sub = sc.sub_idx.cpu().numpy()
+        out["in_range"] &= bool(
+            (nbr >= 0).all() and (nbr < n).all() and (sub >= 0).all()
+            and (sub < n).all() and (up >= 0).all() and (up < n_sub).all())
+        if s == 0:
+            out["self_share"] = float((nbr[..., 0] == np.arange(n)).mean())
+        plain = knn(pos, kernel_sizes[s])
+        inside = (nbr[..., :, None] == plain[..., None, :]).any(-1)
+        out["outside_knn"].append(float(1 - inside.mean()))
+    expect(out["self_share"] == 1.0,
+           f"host pyramid: column 0 is self on {out['self_share']} of rows")
+    expect(out["in_range"], "host pyramid: an index outside its scale")
+    for s, (share, d) in enumerate(zip(out["outside_knn"], dilations)):
+        expect((share > 0) if d > 1 else (share == 0),
+               f"host pyramid scale {s} (dilation {d}): {share} of the "
+               "neighbours outside the plain kNN(k)")
+    return out
+
+
+def endless(loader):
+    """The loader's batches epoch after epoch, as a trainer draws them."""
+    while True:
+        yield from loader
+
+
+def timed_steps(state, train_step, batches, n: int, dev, seed0: int):
+    """``n`` train steps on ``next(batches)``, with no synchronisation
+    between them, as a training loop runs: returns the event ms of each
+    step (the stream's time from one step's end to the next's, the wait
+    for the batch included), the losses and the host seconds."""
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(n + 1)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ev[0].record()
+    losses = []
+    for i in range(n):
+        m = train_step(state, next(batches), step_generator(dev, seed0 + i))
+        losses.append(m["loss"])
+        ev[i + 1].record()
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t0
+    return ([ev[i].elapsed_time(ev[i + 1]) for i in range(n)],
+            [float(v) for v in losses], host_s)
+
+
+def loader_host_ms(loader, runs: int) -> dict:
+    """The loader without a step (prefetch 0): host ms of a batch's draw
+    (samples, transforms, stacking), of its placing (host pyramid where
+    ``emit`` is "pyramid", pinned copies, the device synchronised), and the
+    device ms of its H2D copies from pinned memory (events); medians."""
+    draw, place, h2d, nbytes_ = [], [], [], 0
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        h = loader.draw()
+        t1 = time.perf_counter()
+        loader.place(h)
+        torch.cuda.synchronize()
+        draw.append((t1 - t0) * 1e3)
+        place.append((time.perf_counter() - t1) * 1e3)
+    arrays = [a for a in (h.pos, h.x, h.y, h.point_idx) if a is not None]
+    pinned = [torch.from_numpy(np.ascontiguousarray(a)).pin_memory()
+              for a in arrays]
+    nbytes_ = sum(a.nbytes for a in arrays)
+    h2d = median_ms(lambda: [p.to(loader.device, non_blocking=True)
+                             for p in pinned])
+    return {"draw_ms": statistics.median(draw),
+            "place_ms": statistics.median(place),
+            "batch_ms": statistics.median(d + p for d, p in zip(draw, place)),
+            "h2d_ms": h2d, "h2d_bytes": nbytes_,
+            "h2d_gb_per_s": nbytes_ / h2d / 1e6}
+
+
+def loader_train_path(label, loader, state, train_step, dev, sites,
+                      expected, out_dir, results) -> tuple:
+    """A train path fed by ``loader`` (prefetch 2, on the card): a recorded
+    step whose kernel calls are held against their plain versions
+    (``results`` gains the phases); LOADER_STEPS steps fed by the loader,
+    with exact launch counts, a finite loss, finite nonzero gradients and
+    every parameter and running statistic moved; the same steps on the
+    same batches placed on the card beforehand, in turns with steps fed by
+    the loader (fed, placed, placed, fed); a profiled loader-fed step and
+    peak memory. Returns every batch the loader gave, in order, and the
+    measurements."""
+    from crfconv_tpu_torch import cuda_build
+
+    name = f"{label} train"
+    consumed = []
+
+    def fed_batches():
+        for b in endless(loader):
+            consumed.append(b)
+            yield b
+
+    fed = fed_batches()
+    first = next(fed)
+    calls = record_calls(sites, lambda: train_step(state, first,
+                                                   step_generator(dev, 0)))
+    torch.cuda.synchronize()
+    for kname, got in calls.items():
+        expect(len(got) == expected[kname], f"{name} {kname}: {len(got)} "
+               f"calls per step, expected {expected[kname]}")
+    run_phases(results, name, sites, calls)
+    del calls
+
+    params = dict(state.model.named_parameters())
+    before = snapshot(state.model)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cuda_build.reset_launch_counts()
+    fed_ms, losses, host_s = timed_steps(state, train_step, fed, LOADER_STEPS,
+                                         dev, 1)
+    counts = cuda_build.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    record_launches(name, counts, only(expected), LOADER_STEPS, "steps")
+    expect(all(np.isfinite(losses)), f"{name}: losses {losses}")
+    bad = [n for n, p in params.items()
+           if p.grad is None or not bool(torch.isfinite(p.grad).all())
+           or not bool(p.grad.any())]
+    expect(not bad, f"{name}: no, non-finite or all-zero gradient {bad[:4]}")
+    after = snapshot(state.model)
+    still = [n for n in params if torch.equal(before[n], after[n])]
+    expect(not still, f"{name}: parameters that did not move {still[:4]}")
+    stats = [n for n in before if n not in params]
+    same = [n for n in stats if torch.equal(before[n], after[n])]
+    expect(stats and not same, f"{name}: running statistics unchanged "
+           f"{same[:4]}")
+    del before, after
+
+    placed = consumed[1:1 + LOADER_STEPS]
+    placed_ms, _, _ = timed_steps(state, train_step, iter(placed),
+                                  LOADER_STEPS, dev, 1)
+    placed2_ms, _, _ = timed_steps(state, train_step, iter(placed),
+                                   LOADER_STEPS, dev, 1)
+    fed2_ms, _, _ = timed_steps(state, train_step, fed, LOADER_STEPS, dev, 1)
+    fed_med = statistics.median(fed_ms + fed2_ms)
+    placed_med = statistics.median(placed_ms + placed2_ms)
+    print(f"# {name} ({CARD}): {LOADER_STEPS} loader-fed steps "
+          f"{[round(t, 3) for t in fed_ms]} ms (events; {host_s:.3f} s host), "
+          f"loss {[round(v, 5) for v in losses]}, peak memory "
+          f"{peak_gb:.2f} GiB; in turns fed, placed, placed, fed: "
+          f"median step {fed_med:.3f} ms fed by the loader, {placed_med:.3f} "
+          f"ms on the same batches placed beforehand (gap "
+          f"{fed_med - placed_med:+.3f} ms)", flush=True)
+    gen = step_generator(dev, 50)
+    profile, busy = profile_phase(
+        f"{label} profiler (loader-fed)",
+        lambda: train_step(state, next(fed), gen),
+        os.path.join(out_dir, f"chip_smoke_{label}_trace.json"), "step",
+        fed_med)
+    fed.close()
+    return consumed, {
+        "fed_steps_ms": fed_ms, "fed_again_ms": fed2_ms,
+        "placed_steps_ms": placed_ms, "placed_again_ms": placed2_ms,
+        "fed_step_ms": fed_med, "placed_step_ms": placed_med,
+        "fed_host_s": host_s, "losses": losses, "peak_gib": peak_gb,
+        "kernel_busy_ms": busy, "idle_share": 1 - busy / fed_med,
+        "profile": profile[:40], "calls_per_step": only(expected),
+    }
+
+
+def s3dis_loader_phase(dev, rng, out_dir: str, results: dict) -> dict:
+    """Phase 27: S3DIS rooms written as raw files, processed by the port's
+    reader (numpy parse, native grid subsample, KD-tree projection), cropped
+    by the possibility sampler and fed by MultiscaleLoader (emit "raw",
+    prefetch 2, the train transform) to the full-width flagship's windowed
+    train step at B8 x 8192 (:func:`loader_train_path`); a loader without
+    prefetch restored to the first one's starting state gives the same
+    batches bit for bit, and times a batch on the host."""
+    import tempfile
+
+    from crfconv_tpu_torch import (
+        MultiscaleLoader, S3DISRoomDataset, loader_load_state_dict,
+        loader_state_dict, make_train_step,
+    )
+    from crfconv_tpu_torch.data.transforms import default_train_transform
+    from crfconv_tpu_torch.ops import native_build
+    from crfconv_tpu_torch.train.train_state import TRAIN_MODE
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_s3dis_") as root:
+        t0 = time.perf_counter()
+        write_s3dis_rooms(root, np.random.default_rng(SEED + 27))
+        t1 = time.perf_counter()
+        data = S3DISRoomDataset(root, grid_size=0.04, num_points=N,
+                                seed=SEED)
+        t2 = time.perf_counter()
+    train = data.train_set
+    sub_points = [int(p.shape[0]) for p in train.input_points]
+    lib = native_build.library_path().name
+    print(f"# s3dis loader: {len(S3DIS_ROOMS)} rooms of {ROOM_POINTS} points "
+          f"written in {t1 - t0:.2f} s, processed in {t2 - t1:.2f} s (host "
+          f"kNN and grid subsample: native, {lib}); training sub-clouds "
+          f"{sub_points} points", flush=True)
+    expect(min(sub_points) < N < max(sub_points),
+           f"s3dis loader: sub-clouds {sub_points} do not straddle {N}")
+
+    def make_loader(prefetch):
+        return MultiscaleLoader(train, B, transform=default_train_transform(),
+                                emit="raw", prefetch=prefetch, device=dev,
+                                seed=SEED)
+
+    loader = make_loader(2)
+    start = loader_state_dict(loader)
+    consumed, out = loader_train_path(
+        "s3dis_loader", loader, make_train_state(dev), make_train_step(
+            TRAIN_MODE), dev, train_call_sites(), S3DIS_LOADER_PER_STEP,
+        out_dir, results)
+    padded = sum(int(len(torch.unique(row)) < N) for b in consumed
+                 for row in b.point_idx)
+    # the same draws without the thread: a loader without prefetch from the
+    # first one's starting state (the sampler's and the loader's generators)
+    replay = make_loader(0)
+    loader_load_state_dict(replay, start)
+    again = iter(replay)
+    same = all(batches_equal(b, next(again)) for b in consumed)
+    again.close()
+    expect(same, "s3dis loader: a loader without prefetch gives other "
+           "batches")
+    host = loader_host_ms(replay, runs=5)
+    print(f"# s3dis loader ({CARD}): {len(consumed)} batches, {padded} of "
+          f"{len(consumed) * B} crops padded with duplicates; prefetch 0 "
+          f"replay bit-equal {same}; host ms a batch without a step "
+          f"{host['batch_ms']:.3f} (draw {host['draw_ms']:.3f}, place "
+          f"{host['place_ms']:.3f}), H2D copy {host['h2d_ms']:.4f} ms for "
+          f"{host['h2d_bytes']} bytes ({host['h2d_gb_per_s']:.2f} GB/s)",
+          flush=True)
+    del consumed
+    torch.cuda.empty_cache()
+    return {"rooms": len(S3DIS_ROOMS), "room_points": ROOM_POINTS,
+            "host_backend": f"native ({lib})", "write_s": t1 - t0,
+            "process_s": t2 - t1,
+            "sub_cloud_points": sub_points, "padded_crops": padded,
+            "prefetch0_bit_equal": same, "host": host, **out}
+
+
+def shapenet_loader_phase(dev, rng, out_dir: str, results: dict) -> dict:
+    """Phase 28: ShapeNet shapes written as raw files, read by the port's
+    reader and fed by MultiscaleLoader with ShapeNetConfig's host pyramid
+    (kernel sizes 32, 16, 8, 8, 8, ratios 4, 2, 2, 2, 2, k_up 3, dilations
+    1, 2, 4, 2, 1; emit "pyramid", prefetch 2) to CRFSegNet_Part(50,
+    steps=10) trained in the exact regime at B8 x 2048 with the category a
+    cloud (:func:`loader_train_path`); the first batch's pyramid checked
+    (:func:`pyramid_checks`) and the host pyramid timed."""
+    import tempfile
+
+    from crfconv_tpu_torch import (
+        MultiscaleLoader, ShapeNetNormalDataset, build_pyramid,
+        make_train_step,
+    )
+    from crfconv_tpu_torch.ops import activation, knn_host
+
+    cfg = shapenet_config(SHAPENET_TRAIN_BATCH)
+    pyramid = dict(kernel_sizes=cfg.kernel_sizes, ratios=cfg.ratios,
+                   k_up=cfg.k_up, dilations=cfg.dilations)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_shapenet_") as root:
+        t0 = time.perf_counter()
+        write_shapenet_shapes(root, np.random.default_rng(SEED + 28))
+        t1 = time.perf_counter()
+        data = ShapeNetNormalDataset(root, train=True,
+                                     num_points=cfg.sample_num)
+        t2 = time.perf_counter()
+    print(f"# shapenet loader: {len(data)} training shapes written in "
+          f"{t1 - t0:.2f} s, processed in {t2 - t1:.2f} s", flush=True)
+
+    def make_loader(prefetch):
+        return MultiscaleLoader(data, cfg.batch_size, emit="pyramid",
+                                prefetch=prefetch, device=dev, seed=SEED,
+                                **pyramid)
+
+    timing = make_loader(0)
+    h = timing.draw()
+    pyr_ms = []
+    for i in range(5):
+        t = time.perf_counter()
+        build_pyramid(h.pos, rng=np.random.default_rng(i), **pyramid)
+        pyr_ms.append((time.perf_counter() - t) * 1e3)
+    host = loader_host_ms(timing, runs=5)
+    print(f"# shapenet loader ({CARD}): build_pyramid at "
+          f"{cfg.batch_size}x{cfg.sample_num} (native kNN) "
+          f"{statistics.median(pyr_ms):.3f} ms host (median of 5); host ms "
+          f"a batch without a step {host['batch_ms']:.3f} (draw "
+          f"{host['draw_ms']:.3f}, pyramid and place {host['place_ms']:.3f})",
+          flush=True)
+
+    loader = make_loader(2)
+    it = iter(loader)
+    first = next(it)
+    it.close()
+    checks = pyramid_checks(
+        first.scales, cfg.kernel_sizes, cfg.dilations,
+        lambda pos, k: knn_host.knn_batch(pos, pos, k))
+    expect(first.category is not None and first.y.dtype == torch.int64
+           and first.scales[0].neighbor_idx.dtype == torch.int64,
+           "shapenet loader: a batch without its category or int64 ids")
+    print(f"# shapenet loader pyramid: column 0 self on "
+          f"{checks['self_share']} of scale 0's rows, indices in range "
+          f"{checks['in_range']}, neighbours outside the plain kNN(k) by "
+          f"scale {[round(s, 4) for s in checks['outside_knn']]} (dilations "
+          f"{cfg.dilations})", flush=True)
+    sites = {"leaky_relu_bwd": (activation, "leaky_relu_bwd",
+                                activation.leaky_relu_bwd,
+                                activation.leaky_relu_bwd_plain)}
+    train_step = make_train_step(EXACT, windowed=False,
+                                 ignore_index=cfg.ignore_index,
+                                 label_offset=cfg.label_offset)
+    consumed, out = loader_train_path(
+        "shapenet_loader", loader, shapenet_state(cfg, dev), train_step, dev,
+        sites, SHAPENET_EXACT_PER_STEP, out_dir, results)
+    del consumed
+    torch.cuda.empty_cache()
+    return {"shapes": len(data), "write_s": t1 - t0, "process_s": t2 - t1,
+            "build_pyramid_ms": pyr_ms, "host": host, "pyramid": checks,
+            "config": {"model": cfg.model_name, "batch": cfg.batch_size,
+                       "points": cfg.sample_num, "steps": cfg.steps,
+                       "mode": "exact", **pyramid},
+            **out}
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -3494,17 +3983,20 @@ def main() -> int:
                     ("discrete_exact", discrete_exact_phase),
                     ("shapenet", shapenet_phases), ("kitti", kitti_phases),
                     ("scannet_exact", scannet_exact_phases),
-                    ("discrete_exact_train", discrete_exact_train_phase)):
+                    ("discrete_exact_train", discrete_exact_train_phase),
+                    ("s3dis_loader", s3dis_loader_phase),
+                    ("shapenet_loader", shapenet_loader_phase)):
         run_path(key, fn)
 
-    # launches: the sum over the eighteen main paths (flagship serve and
+    # launches: the sum over the twenty main paths (flagship serve and
     # train, ScanNet serve and train, ScanNet-discrete serve and train,
     # Semantic3D serve, flagship exact serve and train, the 2-view eval,
     # ScanNet-discrete exact serve; ShapeNet serve and train, SemanticKITTI
     # serve and train, ScanNet exact serve and train, ScanNet-discrete exact
-    # train). The times are those of the first path whose calls were held
-    # against the plain version; every path's are in "phases", and
-    # max_abs_err is the largest over them
+    # train; S3DIS and ShapeNet training fed by the loader). The times are
+    # those of the first path whose calls were held against the plain
+    # version; every path's are in "phases", and max_abs_err is the largest
+    # over them
     kernels = []
     for name in REPLACES:
         phases = results[name]

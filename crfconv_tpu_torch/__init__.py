@@ -8,12 +8,24 @@ registry, served and trained on an NVIDIA H100, in the windowed neighbour regime
 and in the exact one (``knn_bruteforce``, ``build_pyramid_device``), with
 every kernel written by hand in CUDA C++ (``csrc/``, built on first use by
 ``cuda_build``). On CPU tensors every kernel wrapper runs its plain
-PyTorch version.
+PyTorch version. The six datasets' readers (``data/datasets``), the
+possibility sampler, the transforms and ``MultiscaleLoader`` feed them from
+the host, with the host pyramid (``build_pyramid``) for the exact regime.
 """
 
 from crfconv_tpu_torch.convert import from_flax
 from crfconv_tpu_torch.data.batch import RawBatch
-from crfconv_tpu_torch.data.pipeline import build_pyramid_device
+from crfconv_tpu_torch.data.datasets import (
+    NPM3DDataset, S3DISBlockDataset, S3DISRoom, S3DISRoomDataset,
+    ScanNetDataset, Semantic3D, Semantic3DBlockDataset,
+    Semantic3DWholeDataset, SemanticKITTIDataset, ShapeNetNormalDataset,
+)
+from crfconv_tpu_torch.data.loader import (
+    MultiscaleLoader, loader_load_state_dict, loader_state_dict,
+)
+from crfconv_tpu_torch.data.pipeline import (
+    build_pyramid, build_pyramid_device, make_batch,
+)
 from crfconv_tpu_torch.models import (
     BaselineDiscreteCRFSegNet, BaselineSegNet, CRFSegNet, CRFSegNet_Part,
     DualCRFSegNet, PointConvResNet, get_model,
@@ -35,16 +47,31 @@ __all__ = [
     "CRFSegNet_Part",
     "CheckpointManager",
     "DualCRFSegNet",
+    "MultiscaleLoader",
+    "NPM3DDataset",
     "NeighborMode",
     "PointConvResNet",
     "Predictor",
     "RawBatch",
+    "S3DISBlockDataset",
+    "S3DISRoom",
+    "S3DISRoomDataset",
+    "ScanNetDataset",
+    "Semantic3D",
+    "Semantic3DBlockDataset",
+    "Semantic3DWholeDataset",
+    "SemanticKITTIDataset",
+    "ShapeNetNormalDataset",
     "TrainState",
+    "build_pyramid",
     "build_pyramid_device",
     "build_pyramid_windowed",
     "from_flax",
     "get_model",
     "knn_bruteforce",
+    "loader_load_state_dict",
+    "loader_state_dict",
+    "make_batch",
     "make_eval_step",
     "make_train_step",
     "select_min_k",

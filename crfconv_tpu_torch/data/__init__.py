@@ -1,1 +1,1 @@
-"""Batch containers."""
+"""Batch containers, the host pyramid, the readers and the loader."""

@@ -1,6 +1,7 @@
 """Morton (Z-order) codes for spatial locality sorting.
 
-Counterpart of ``crfconv_tpu/ops/morton.py``. Codes are computed in int64
+Counterpart of ``crfconv_tpu/ops/morton.py``, a torch version and a
+numpy one (``morton_code_np``, host pipelines). Codes are computed in int64
 (PyTorch has little uint32 support); the 30-bit code fits either way, so
 the order is the same. The curve can be turned: fixed orientations for the
 multi-view eval (``view_rotation``), random ones for train-time jitter
@@ -15,6 +16,35 @@ import numpy as np
 import torch
 
 BITS = 10  # 10 bits per axis -> 30-bit codes
+
+
+def _spread_bits_np(x: np.ndarray) -> np.ndarray:
+    x = x.astype(np.uint64) & np.uint64(0x3FF)
+    x = (x | (x << np.uint64(16))) & np.uint64(0x030000FF)
+    x = (x | (x << np.uint64(8))) & np.uint64(0x0300F00F)
+    x = (x | (x << np.uint64(4))) & np.uint64(0x030C30C3)
+    x = (x | (x << np.uint64(2))) & np.uint64(0x09249249)
+    return x
+
+
+def morton_code_np(pos: np.ndarray) -> np.ndarray:
+    """Host version: [..., N, 3] float positions -> [..., N] uint64 codes."""
+    pos = np.asarray(pos, np.float64)
+    mn = pos.min(axis=-2, keepdims=True)
+    span = np.maximum(pos.max(axis=-2, keepdims=True) - mn, 1e-9)
+    q = np.clip(
+        (pos - mn) / span * (2**BITS - 1), 0, 2**BITS - 1
+    ).astype(np.uint64)
+    return (
+        _spread_bits_np(q[..., 0])
+        | (_spread_bits_np(q[..., 1]) << np.uint64(1))
+        | (_spread_bits_np(q[..., 2]) << np.uint64(2))
+    )
+
+
+def morton_order_np(pos: np.ndarray) -> np.ndarray:
+    """Host version: the stable permutation into Morton order."""
+    return np.argsort(morton_code_np(pos), axis=-1, kind="stable")
 
 
 def _spread_bits(x: torch.Tensor) -> torch.Tensor:

@@ -31,7 +31,9 @@ to 32 points (k 8 on 8 points: a window of mostly sentinel rows), K9-K12
 on clouds narrower than a 64-row tile (K 7 on 8 rows, and the four CRF
 layers of CRFSegNet_Part at B16 x 2048, the coarsest 32 rows wide at
 width 256), each through ten steps and the core's backward; K7 and K8 at
-the flagship's training shapes of B8 x 65536 points.
+the flagship's training shapes of B8 x 65536 points. The loader's copies
+to the card on its side stream give the batches of a loader without
+prefetch and of the CPU loader, and its errors reach the consumer.
 
 Needs an NVIDIA GPU and nvcc; skipped otherwise. On the card run
 
@@ -1395,3 +1397,65 @@ def test_gather_bwd_kitti_step(dev, m, n, f):
     assert torch.equal(got, windowed.windowed_gather_bwd(g, idx, n))
     assert torch.equal(got.cpu(), windowed.windowed_gather_bwd_plain(
         g.cpu(), idx.cpu(), n))
+
+
+class _Clouds:
+    """Random clouds drawn from the loader's generator; ``fail_after``
+    samples, then an error."""
+
+    def __init__(self, n=2048, fail_after=None):
+        self.n = n
+        self.fail_after = fail_after
+        self.drawn = 0
+
+    def __len__(self):
+        return 64
+
+    def get_sample(self, rng, idx=None):
+        self.drawn += 1
+        if self.fail_after is not None and self.drawn > self.fail_after:
+            raise RuntimeError("sample failed")
+        pos = rng.random((self.n, 3), dtype=np.float32)
+        return {"pos": pos, "x": np.concatenate([pos, pos], axis=1),
+                "y": rng.integers(0, 13, self.n),
+                "point_idx": rng.permutation(self.n),
+                "cloud_idx": np.int64(rng.integers(4))}
+
+
+@pytest.mark.parametrize("emit", ["raw", "pyramid"])
+def test_loader_prefetch_on_the_card(dev, emit):
+    """The loader's side-stream copies from pinned memory: batches of a
+    prefetching loader are on the card, int64 where the port indexes, and
+    bit-equal to a loader without prefetch and to the CPU loader's."""
+    from crfconv_tpu_torch.data.loader import MultiscaleLoader, batch_tensors
+
+    def batches(prefetch, device):
+        lo = MultiscaleLoader(_Clouds(), 4, emit=emit, prefetch=prefetch,
+                              device=device, seed=3)
+        it = iter(lo)
+        out = [next(it) for _ in range(6)]
+        it.close()
+        return out
+
+    fed, plain, cpu = batches(2, dev), batches(0, dev), batches(0, "cpu")
+    torch.cuda.synchronize()
+    for a, b, c in zip(fed, plain, cpu):
+        ta, tb, tc = batch_tensors(a), batch_tensors(b), batch_tensors(c)
+        assert len(ta) == len(tb) == len(tc) >= 5
+        for x, y, z in zip(ta, tb, tc):
+            assert x.is_cuda and x.dtype == y.dtype == z.dtype
+            assert x.dtype in (torch.float32, torch.int64)
+            assert torch.equal(x, y) and torch.equal(x.cpu(), z)
+
+
+@pytest.mark.parametrize("prefetch", [0, 2])
+def test_loader_error_on_the_card(dev, prefetch):
+    from crfconv_tpu_torch.data.loader import MultiscaleLoader
+
+    lo = MultiscaleLoader(_Clouds(fail_after=9), 4, emit="raw",
+                          prefetch=prefetch, device=dev)
+    got = []
+    with pytest.raises(RuntimeError, match="sample failed"):
+        for b in lo:
+            got.append(b)
+    assert len(got) == 2
