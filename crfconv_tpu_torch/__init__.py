@@ -11,6 +11,11 @@ every kernel written by hand in CUDA C++ (``csrc/``, built on first use by
 PyTorch version. The six datasets' readers (``data/datasets``), the
 possibility sampler, the transforms and ``MultiscaleLoader`` feed them from
 the host, with the host pyramid (``build_pyramid``) for the exact regime.
+``Trainer`` (``python -m crfconv_tpu_torch.train``) runs experiments:
+epochs, validation, resumable checkpoints, the vote test
+(``labeled_vote_eval``), ShapeNet's part IoU and, with ``streaming_eval``,
+SemanticKITTI's per-sequence eval; ``compute_dtype_scope(torch.bfloat16)``
+runs the models' products in bfloat16.
 """
 
 from crfconv_tpu_torch.convert import from_flax
@@ -30,15 +35,21 @@ from crfconv_tpu_torch.models import (
     BaselineDiscreteCRFSegNet, BaselineSegNet, CRFSegNet, CRFSegNet_Part,
     DualCRFSegNet, PointConvResNet, get_model,
 )
+from crfconv_tpu_torch.models.common import (
+    compute_dtype_scope, get_compute_dtype, set_compute_dtype,
+)
 from crfconv_tpu_torch.ops.neighbors import NeighborMode, knn_bruteforce
 from crfconv_tpu_torch.ops.windowed import (
     build_pyramid_windowed, select_min_k,
 )
 from crfconv_tpu_torch.serve import Predictor
 from crfconv_tpu_torch.train.checkpoint import CheckpointManager
+from crfconv_tpu_torch.train.kitti_eval import streaming_eval
 from crfconv_tpu_torch.train.train_state import (
     TrainState, make_eval_step, make_train_step,
 )
+from crfconv_tpu_torch.train.trainer import Trainer
+from crfconv_tpu_torch.train.vote import labeled_vote_eval
 
 __all__ = [
     "BaselineDiscreteCRFSegNet",
@@ -63,16 +74,22 @@ __all__ = [
     "SemanticKITTIDataset",
     "ShapeNetNormalDataset",
     "TrainState",
+    "Trainer",
     "build_pyramid",
     "build_pyramid_device",
     "build_pyramid_windowed",
+    "compute_dtype_scope",
     "from_flax",
+    "get_compute_dtype",
     "get_model",
     "knn_bruteforce",
+    "labeled_vote_eval",
     "loader_load_state_dict",
     "loader_state_dict",
     "make_batch",
     "make_eval_step",
     "make_train_step",
     "select_min_k",
+    "set_compute_dtype",
+    "streaming_eval",
 ]

@@ -14,6 +14,13 @@ The port's module names are the flax names, so the mapping is structural:
   * any other leaf is copied as it is: the continuous CRF's compatibility
     ``c`` and the discrete CRF's ``crf/{F, W, C}`` (kernels, kernel
     weights, label compatibility).
+
+:func:`load_flax_train_state` carries a JAX trainer's whole train state
+into the port's ``TrainState``: the weights and statistics as above, the
+optimizer's momentum (optax's ``trace``, which has the params' tree, as
+SGD's momentum buffers: both are ``m_t = g_t + momentum * m_{t-1}``), the
+step and the learning rate of the step's epoch. Nothing is left behind: the
+JAX chain's other states are empty or the step count.
 """
 
 from __future__ import annotations
@@ -53,3 +60,34 @@ def from_flax(params: Mapping, batch_stats: Mapping) -> dict:
 
     walk(params, batch_stats, "")
     return out
+
+
+def set_momentum(state, momenta: Mapping, step: int) -> None:
+    """Set a port ``TrainState``'s SGD momentum buffers (``momenta``, by
+    parameter name) and its step, with the scheduler's learning rate at
+    that step."""
+    for name, p in state.model.named_parameters():
+        state.optimizer.state[p]["momentum_buffer"] = (
+            torch.as_tensor(momenta[name]).to(p.device, p.dtype).clone())
+    state.step = step
+    sched = state.scheduler
+    lrs = [base * fn(step) for base, fn in zip(sched.base_lrs,
+                                                sched.lr_lambdas)]
+    for group, lr in zip(state.optimizer.param_groups, lrs):
+        group["lr"] = lr
+    sched.last_epoch = step
+    sched._last_lr = lrs
+
+
+def load_flax_train_state(state, jax_state) -> None:
+    """A JAX ``TrainState`` (host arrays: ``params``, ``batch_stats``, the
+    ``opt_state`` of the chain of ``make_optimizer`` in
+    ``crfconv_tpu/train/train_state.py``, ``step``) into the port's
+    ``state``, in place."""
+    state.model.load_state_dict(
+        from_flax(jax_state.params, jax_state.batch_stats))
+    trace = next(s.trace for s in jax_state.opt_state if hasattr(s, "trace"))
+    # the trace has the params' tree; the statistics the walk adds are
+    # not parameters and are dropped
+    set_momentum(state, from_flax(trace, jax_state.batch_stats),
+                 int(jax_state.step))

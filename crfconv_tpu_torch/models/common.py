@@ -4,10 +4,18 @@ Counterpart of ``crfconv_tpu/models/common.py``: ``MLP`` is Linear (bias
 iff no batch norm) -> batch norm -> activation. Parameter and buffer names
 follow the flax tree (``convert.from_flax``). The batch norm has no
 validity mask: that belongs to point-sharded training, not ported yet.
+
+The compute dtype (``set_compute_dtype``, ``compute_dtype_scope``) is the
+dtype of every MLP's product, as flax's ``nn.Dense(dtype=...)`` of the JAX
+package: ``torch.bfloat16`` runs the products in bfloat16 on bfloat16
+copies of the float32 parameters; None (the default) keeps float32. Batch
+statistics stay in at least float32 and the kernels run in float32 whatever
+the activations' dtype (they cast on the way in and out).
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Callable, Optional
 
@@ -18,6 +26,30 @@ import torch.nn.functional as F
 from crfconv_tpu_torch.ops.activation import leaky_relu
 
 BN_MOMENTUM = 0.9   # running stats: ra = 0.9 * ra + 0.1 * batch, as flax
+
+# The dtype of the MLPs' products (None: float32); read at each forward.
+_COMPUTE = {"dtype": None}
+
+
+def set_compute_dtype(dtype: Optional[torch.dtype]) -> None:
+    """None -> float32 products; torch.bfloat16 -> bfloat16 products."""
+    _COMPUTE["dtype"] = dtype
+
+
+def get_compute_dtype() -> Optional[torch.dtype]:
+    return _COMPUTE["dtype"]
+
+
+@contextlib.contextmanager
+def compute_dtype_scope(dtype: Optional[torch.dtype]):
+    """:func:`set_compute_dtype` for the block; the previous dtype is
+    restored on exit, an exception included."""
+    prev = _COMPUTE["dtype"]
+    _COMPUTE["dtype"] = dtype
+    try:
+        yield
+    finally:
+        _COMPUTE["dtype"] = prev
 
 
 def leaky_relu01(x: torch.Tensor) -> torch.Tensor:
@@ -66,7 +98,7 @@ class MaskedBatchNorm(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             y = (x - self.mean) * torch.rsqrt(self.var + self.epsilon)
-            return y * self.scale + self.bias
+            return (y * self.scale + self.bias).to(x.dtype)
         xf = x.to(torch.promote_types(x.dtype, torch.float32))
         dims = tuple(range(x.dim() - 1))
         mean = xf.mean(dim=dims)
@@ -82,7 +114,12 @@ class MaskedBatchNorm(nn.Module):
 
 
 class MLP(nn.Module):
-    """Linear (bias iff no batch norm) -> batch norm -> activation."""
+    """Linear (bias iff no batch norm) -> batch norm -> activation.
+
+    The product runs in the compute dtype where one is set (input, weight
+    and bias cast to it), as flax's ``nn.Dense(dtype=...)``; with
+    ``scoped=False`` it runs in the promoted dtype of input and weight, as
+    a bare ``nn.Dense`` (the flagship's classifier_1)."""
 
     def __init__(
         self,
@@ -91,9 +128,11 @@ class MLP(nn.Module):
         activation: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
         use_bn: bool = True,
         device=None,
+        scoped: bool = True,
     ):
         super().__init__()
         self.in_features = in_features
+        self.scoped = scoped
         self.weight = nn.Parameter(
             torch.empty(features, in_features, device=device)
         )
@@ -115,7 +154,11 @@ class MLP(nn.Module):
                 p.copy_((2 * r - 1) * bound)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = F.linear(x, self.weight, self.bias)
+        dtype = _COMPUTE["dtype"] if self.scoped else None
+        if dtype is None:
+            dtype = torch.promote_types(x.dtype, self.weight.dtype)
+        x = F.linear(x.to(dtype), self.weight.to(dtype),
+                     None if self.bias is None else self.bias.to(dtype))
         if self.bn is not None:
             x = self.bn(x)
         if self.activation is not None:

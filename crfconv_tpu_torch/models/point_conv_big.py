@@ -190,8 +190,9 @@ class PointConvResNet(nn.Module):
         self.deconv1 = deconv(L[1], L[0])
         self.classifier_0 = MLP(L[0], L[0] * 4, leaky_relu01, device=dev)
         self.dropout_rate = dropout_rate
+        # a bare Dense in the JAX model: float32 logits in any compute dtype
         self.classifier_1 = MLP(L[0] * 4, n_classes, None, use_bn=False,
-                                device=dev)
+                                device=dev, scoped=False)
         if generator is None:
             generator = torch.Generator().manual_seed(0)
         for m in self.modules():

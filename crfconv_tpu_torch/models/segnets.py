@@ -70,6 +70,9 @@ class _Classifier(nn.Module):
             fc.bias.zero_()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        # bare Denses in the JAX model: the input promoted to the weights'
+        # dtype whatever the compute dtype
+        x = x.to(torch.promote_types(x.dtype, self.fc1.weight.dtype))
         return self.fc2(F.relu(self.fc1(x)))
 
 

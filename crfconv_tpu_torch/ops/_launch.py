@@ -3,12 +3,20 @@
 A wrapper takes its plain PyTorch version only for tensors that lie on the
 CPU. For CUDA tensors it launches its kernel or raises; there is no
 fallback.
+
+The kernels compute in float32. A wrapper given narrower floats (the
+bfloat16 activations of the bf16 compute mode) casts them to float32, runs
+the same kernel (or plain version) and casts the result back, as the JAX
+package's wrappers do around their Pallas kernels; so does each plain
+version, so the two agree. :func:`float32_io` is that rule, put on each
+wrapper and plain version.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import inspect
 
 import torch
 
@@ -28,6 +36,53 @@ def on_cuda(*tensors: torch.Tensor) -> bool:
     if dev.type == "cuda":
         return True
     raise ValueError(f"no kernel for device {dev}")
+
+
+NARROW = (torch.bfloat16, torch.float16)
+
+
+def narrow(*tensors) -> bool:
+    """True if any of the tensors is a float narrower than float32."""
+    return any(isinstance(t, torch.Tensor) and t.dtype in NARROW
+               for t in tensors)
+
+
+def widen(t):
+    """``t`` as float32 where it is a narrower float, else as it is."""
+    if isinstance(t, torch.Tensor) and t.dtype in NARROW:
+        return t.float()
+    return t
+
+
+def float32_io(*like: str):
+    """Decorate a function that computes in float32. Where a tensor
+    argument is a narrower float, every such argument is widened to
+    float32 for the call, and each float output is cast back to the dtype
+    of the argument ``like`` names (one name for every output, or one per
+    output); integer outputs are left as they are. The casts are
+    differentiable, so an autograd front decorated so returns its
+    gradients in the inputs' dtypes."""
+    def decorate(fn):
+        sig = inspect.signature(fn)
+
+        @functools.wraps(fn)
+        def wrapper(*args, **kwargs):
+            if not narrow(*args, *kwargs.values()):
+                return fn(*args, **kwargs)
+            given = sig.bind(*args, **kwargs).arguments
+            dtypes = [given[name].dtype for name in like]
+            out = fn(*map(widen, args),
+                     **{k: widen(v) for k, v in kwargs.items()})
+            outs = out if isinstance(out, tuple) else (out,)
+            if len(dtypes) == 1:
+                dtypes = dtypes * len(outs)
+            outs = tuple(o.to(dtypes[i]) if o.is_floating_point() else o
+                         for i, o in enumerate(outs))
+            return outs if isinstance(out, tuple) else outs[0]
+
+        return wrapper
+
+    return decorate
 
 
 def check(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int) -> None:

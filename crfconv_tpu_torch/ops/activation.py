@@ -13,7 +13,9 @@ import torch
 import torch.nn.functional as F
 
 from crfconv_tpu_torch.cuda_build import LEAKY_RELU_BWD
-from crfconv_tpu_torch.ops._launch import launch_on, on_cuda, raw_stream
+from crfconv_tpu_torch.ops._launch import (
+    float32_io, launch_on, on_cuda, raw_stream,
+)
 
 
 def leaky_relu(x: torch.Tensor, slope: float) -> torch.Tensor:
@@ -37,11 +39,13 @@ class _LeakyReLU(torch.autograd.Function):
         return leaky_relu_bwd(x, g, ctx.slope), None
 
 
+@float32_io("g")
 def leaky_relu_bwd(x: torch.Tensor, g: torch.Tensor,
                    slope: float) -> torch.Tensor:
     """dx = g where x >= 0, else g * slope: the kernel on CUDA tensors
     (float32), the plain version on CPU tensors. g may be a slice of a
-    wider tensor's last dimension (it is read in place)."""
+    wider tensor's last dimension (it is read in place). Narrower floats
+    run in float32 and dx takes g's dtype."""
     if not on_cuda(x, g):
         return leaky_relu_bwd_plain(x, g, slope)
     if x.dtype != torch.float32 or g.dtype != torch.float32:
@@ -64,6 +68,7 @@ def leaky_relu_bwd(x: torch.Tensor, g: torch.Tensor,
     return dx
 
 
+@float32_io("g")
 def leaky_relu_bwd_plain(x: torch.Tensor, g: torch.Tensor,
                          slope: float) -> torch.Tensor:
     """Plain PyTorch version of :func:`leaky_relu_bwd`."""

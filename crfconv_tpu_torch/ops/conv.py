@@ -27,7 +27,8 @@ from crfconv_tpu_torch.cuda_build import (
     POINT_CONV_FUSED_INFER, POINT_CONV_FUSED_STRIDED,
 )
 from crfconv_tpu_torch.ops._launch import (
-    check, check_no_grad, launch_on, on_cuda, raw_stream, sm_count,
+    check, check_no_grad, float32_io, launch_on, on_cuda, raw_stream,
+    sm_count,
 )
 from crfconv_tpu_torch.ops.windowed import (
     PAD, TILE, _geometry, window_starts, windowed_gather_plain,
@@ -137,12 +138,14 @@ def _check_mlp(H, w0, a0, c0, w1, a1, c1):
             raise ValueError(f"{name}: expected {shape}, got {tuple(t.shape)}")
 
 
+@float32_io("x")
 def point_conv_fused_infer(
     x, pos, idx, w0, a0, c0, w1, a1, c1,
     tile: int = TILE, pad: int = PAD, slope: float = 0.1,
 ) -> torch.Tensor:
     """x [B, N, H], pos [B, N, 3], idx [B, N, K] int32 (K1's clamp
-    semantics), w0 [3, H], w1 [H, H], a*/c* [H] -> [B, N, H]."""
+    semantics), w0 [3, H], w1 [H, H], a*/c* [H] -> [B, N, H]; narrower
+    floats run in float32 and the result takes x's dtype."""
     if not on_cuda(x, pos, idx, w0, a0, c0, w1, a1, c1):
         return point_conv_fused_infer_plain(
             x, pos, idx, w0, a0, c0, w1, a1, c1, tile, pad, slope
@@ -164,6 +167,7 @@ def point_conv_fused_infer(
     return out
 
 
+@float32_io("x")
 def point_conv_fused_infer_plain(
     x, pos, idx, w0, a0, c0, w1, a1, c1,
     tile: int = TILE, pad: int = PAD, slope: float = 0.1,
@@ -176,6 +180,7 @@ def point_conv_fused_infer_plain(
     return (u * g[..., 3:]).sum(dim=2)
 
 
+@float32_io("x", "res")
 def point_conv_fused_strided(
     x, pos, sub_pos, idx, res, w0, a0, c0, w1, a1, c1,
     tile: int = TILE, pad: int = PAD, slope: float = 0.1,
@@ -184,7 +189,8 @@ def point_conv_fused_strided(
     into N (K1's clamp semantics, bipartite geometry), res [B, N, R],
     w0 [3, H], w1 [H, H], a*/c* [H] -> (out [B, M, H], res_max [B, M, R])
     with res_max the rider's max over each point's K neighbours (zero for a
-    neighbour row outside [0, N))."""
+    neighbour row outside [0, N)). Narrower floats run in float32; out
+    takes x's dtype, res_max res's."""
     if not on_cuda(x, pos, sub_pos, idx, res, w0, a0, c0, w1, a1, c1):
         return point_conv_fused_strided_plain(
             x, pos, sub_pos, idx, res, w0, a0, c0, w1, a1, c1, tile, pad,
@@ -215,6 +221,7 @@ def point_conv_fused_strided(
     return out, res_max
 
 
+@float32_io("x", "res")
 def point_conv_fused_strided_plain(
     x, pos, sub_pos, idx, res, w0, a0, c0, w1, a1, c1,
     tile: int = TILE, pad: int = PAD, slope: float = 0.1,

@@ -26,6 +26,7 @@ from typing import Optional
 
 import torch
 
+from crfconv_tpu_torch.ops._launch import widen
 from crfconv_tpu_torch.ops.crf_core import compat_products, crf_core
 from crfconv_tpu_torch.ops.discrete_core import discrete_core
 from crfconv_tpu_torch.ops.neighbors import (
@@ -68,10 +69,13 @@ def crf_mean_field(
     JAX package's fused path does.
     """
     if mode.windowed and steps >= 2:
+        # the fused core runs in at least float32 (a bfloat16 z is widened,
+        # as the JAX package's fused path does) and returns z's dtype
         _, inv, M = compat_products(c)
-        zp = z @ inv.to(z.dtype)
-        return crf_core(z, zp, s, neighbor_idx, M.to(z.dtype), steps,
-                        mode.tile, mode.pad)
+        zf = widen(z)
+        zp = zf @ inv.to(zf.dtype)
+        return crf_core(zf, zp, s, neighbor_idx, M.to(zf.dtype), steps,
+                        mode.tile, mode.pad).to(z.dtype)
     C, inv, _ = compat_products(c)
     C = C.to(z.dtype)
     inv = inv.to(z.dtype)

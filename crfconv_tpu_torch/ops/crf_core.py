@@ -42,7 +42,8 @@ from crfconv_tpu_torch.cuda_build import (
     CRF_ITERATE, CRF_ITERATE_BWD, CRF_NEIGHBOR_DOT, CRF_OPERATOR,
 )
 from crfconv_tpu_torch.ops._launch import (
-    check, check_no_grad, launch_on, on_cuda, raw_stream, sm_count,
+    check, check_no_grad, float32_io, launch_on, on_cuda, raw_stream,
+    sm_count,
 )
 from crfconv_tpu_torch.ops.windowed import (
     PAD, TILE, _clamped_rows, _geometry, window_starts,
@@ -494,6 +495,7 @@ def crf_neighbor_dot_plain(dmsgs, xs, col, tile=TILE, pad=PAD):
 # ---------------------------------------------------------------------------
 
 
+@float32_io("z")
 def crf_core(
     z: torch.Tensor, zp: torch.Tensor, s: torch.Tensor, idx: torch.Tensor,
     M: torch.Tensor, steps: int, tile: int = TILE, pad: int = PAD,
@@ -501,7 +503,8 @@ def crf_core(
     """x_steps of x_{t+1} = zp + (S~(s, idx) x_t) M, x_0 = z, through the
     kernels (the plain versions on CPU tensors). Differentiable in z, zp,
     s and M; idx gets no gradient. Counterpart of
-    ``crfconv_tpu/ops/crf_pallas.py::crf_core``."""
+    ``crfconv_tpu/ops/crf_pallas.py::crf_core``. Narrower floats run in
+    float32 and the result takes z's dtype."""
     if steps < 1:
         raise ValueError(f"steps {steps} < 1")
     return _CRFCore.apply(z.contiguous(), zp.contiguous(), s.contiguous(),
@@ -541,6 +544,7 @@ class _CRFCore(torch.autograd.Function):
         return lam, dzp, ds, dM, None, None, None, None
 
 
+@float32_io("z")
 def crf_core_plain(z, zp, s, idx, M, steps, tile=TILE, pad=PAD):
     """:func:`crf_core` through the plain versions, differentiable by
     autograd (the reference the kernels' Function is held to)."""

@@ -14,7 +14,7 @@ import torch
 
 from crfconv_tpu_torch.cuda_build import CRF_SIMILARITY_MESSAGE
 from crfconv_tpu_torch.ops._launch import (
-    check, check_no_grad, launch_on, on_cuda, raw_stream,
+    check, check_no_grad, float32_io, launch_on, on_cuda, raw_stream,
 )
 from crfconv_tpu_torch.ops.windowed import (
     PAD, TILE, _geometry, windowed_gather_plain,
@@ -35,12 +35,14 @@ def sim_eligible(training: bool, hidden: int, n_rows: int,
     )
 
 
+@float32_io("z", "y")
 def crf_similarity_message(
     y: torch.Tensor, z: torch.Tensor, idx: torch.Tensor,
     tile: int = TILE, pad: int = PAD,
 ):
     """y, z [B, N, H] f32, idx [B, N, K] int32 (self removed) ->
-    (msg [B, N, H], s [B, N, K])."""
+    (msg [B, N, H], s [B, N, K]). Narrower floats run in float32; msg takes
+    z's dtype, s y's."""
     if not on_cuda(y, z, idx):
         return crf_similarity_message_plain(y, z, idx, tile, pad)
     check_no_grad("crf_similarity_message", y, z)
@@ -66,6 +68,7 @@ def crf_similarity_message(
     return msg, s
 
 
+@float32_io("z", "y")
 def crf_similarity_message_plain(
     y: torch.Tensor, z: torch.Tensor, idx: torch.Tensor,
     tile: int = TILE, pad: int = PAD,

@@ -39,7 +39,8 @@ import torch
 
 from crfconv_tpu_torch.cuda_build import DISCRETE_ITERATE, DISCRETE_ITERATE_BWD
 from crfconv_tpu_torch.ops._launch import (
-    check, check_no_grad, launch_on, on_cuda, raw_stream, sm_count,
+    check, check_no_grad, float32_io, launch_on, on_cuda, raw_stream,
+    sm_count,
 )
 from crfconv_tpu_torch.ops.crf_core import (
     _aligned, _apply_rows, _check_operator, _message,
@@ -447,6 +448,7 @@ def discrete_iterate_bwd_steps_plain(g, qs, q_last, msgs, w, col, C,
 # ---------------------------------------------------------------------------
 
 
+@float32_io("p")
 def discrete_core(
     p: torch.Tensor, u: torch.Tensor, w: torch.Tensor, idx: torch.Tensor,
     C: torch.Tensor, steps: int, tile: int = TILE, pad: int = PAD,
@@ -454,7 +456,8 @@ def discrete_core(
     """q_steps of q_{t+1} = softmax(-u - (S~(w, idx) q_t) C), q_0 = p,
     through the kernels (the plain versions on CPU tensors).
     Differentiable in p, u, w and C; idx gets no gradient. Counterpart of
-    ``crfconv_tpu/ops/crf_pallas.py::discrete_crf_core``."""
+    ``crfconv_tpu/ops/crf_pallas.py::discrete_crf_core``. Narrower floats
+    run in float32 and the result takes p's dtype."""
     if steps < 1:
         raise ValueError(f"steps {steps} < 1")
     # ctx.needs_input_grad ignores grad mode: C is a parameter that needs a
@@ -495,6 +498,7 @@ class _DiscreteCore(torch.autograd.Function):
         return dp, -du, dw, -dC, None, None, None, None, None
 
 
+@float32_io("p")
 def discrete_core_plain(p, u, w, idx, C, steps, tile=TILE, pad=PAD):
     """:func:`discrete_core` through the plain versions, differentiable by
     autograd (the reference the kernels' Function is held to)."""

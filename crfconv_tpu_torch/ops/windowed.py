@@ -25,7 +25,8 @@ from crfconv_tpu_torch.cuda_build import (
 )
 from crfconv_tpu_torch.data.batch import ScaleData
 from crfconv_tpu_torch.ops._launch import (
-    check, check_no_grad, launch_on, on_cuda, ptr, raw_stream, stream,
+    check, check_no_grad, float32_io, launch_on, on_cuda, ptr, raw_stream,
+    stream,
 )
 from crfconv_tpu_torch.ops.morton import morton_order
 
@@ -105,6 +106,7 @@ def check_window_consistency(
 # ---------------------------------------------------------------------------
 
 
+@float32_io("x")
 def windowed_gather(
     x: torch.Tensor, idx: torch.Tensor, tile: int = TILE, pad: int = PAD,
 ) -> torch.Tensor:
@@ -116,7 +118,8 @@ def windowed_gather(
     ``window_knn`` makes them) this is the exact gather x[b, idx].
     Differentiable in x: the backward is :func:`windowed_gather_bwd`
     (kernel K8), the exact transpose, for every geometry. Where no
-    gradient is needed the gather runs without the autograd Function.
+    gradient is needed the gather runs without the autograd Function. A
+    narrower float x is gathered as float32 and returned in its dtype.
     """
     if torch.is_grad_enabled() and x.requires_grad:
         return _WindowedGather.apply(x, idx, tile, pad)
@@ -191,6 +194,7 @@ def _clamped_rows(idx: torch.Tensor, n_src: int, tile: int, pad: int):
 # ---------------------------------------------------------------------------
 
 
+@float32_io("g")
 def windowed_gather_bwd(
     g: torch.Tensor, idx: torch.Tensor, n_src: int,
     tile: int = TILE, pad: int = PAD,
@@ -202,7 +206,8 @@ def windowed_gather_bwd(
     lies outside [0, n_src) are dropped. Each row's terms are added in
     ascending slot order from +0.0, the order of the plain version's
     ``index_add_`` on the CPU: the kernel is bit-equal to it and
-    deterministic. g may be a slice of a wider tensor's last dimension.
+    deterministic. g may be a slice of a wider tensor's last dimension; a
+    narrower float g is summed in float32 and dx returned in its dtype.
     """
     if not on_cuda(g, idx):
         return windowed_gather_bwd_plain(g, idx, n_src, tile, pad)
@@ -236,6 +241,7 @@ def windowed_gather_bwd(
     return dx
 
 
+@float32_io("g")
 def windowed_gather_bwd_plain(
     g: torch.Tensor, idx: torch.Tensor, n_src: int,
     tile: int = TILE, pad: int = PAD,
@@ -259,6 +265,7 @@ def windowed_gather_bwd_plain(
 # ---------------------------------------------------------------------------
 
 
+@float32_io("x")
 def weighted_gather_reduce(
     x: torch.Tensor, u: torch.Tensor, idx: torch.Tensor,
     tile: int = TILE, pad: int = PAD,
@@ -269,7 +276,8 @@ def weighted_gather_reduce(
     Differentiable in x and u (counterpart of the custom VJP of
     ``crfconv_tpu/ops/windowed.py::weighted_gather_reduce``): the forward
     is K7, which also keeps the gathered neighbours xg; the backward is
-    du = xg * g and dx = K8(u * g).
+    du = xg * g and dx = K8(u * g). Narrower floats run in float32 and the
+    result takes x's dtype.
     """
     return _WeightedGatherReduce.apply(x, u, idx, tile, pad)
 
@@ -294,13 +302,15 @@ class _WeightedGatherReduce(torch.autograd.Function):
         return dx, du, None, None, None
 
 
+@float32_io("x")
 def windowed_weighted_reduce(
     x: torch.Tensor, u: torch.Tensor, idx: torch.Tensor,
     tile: int = TILE, pad: int = PAD,
 ):
     """Kernel K7: (out [B, M, H], xg [B, M, K, H]) with xg the window-clamped
     gather of x and out = sum_k u * xg. Not differentiable; the autograd
-    front is :func:`weighted_gather_reduce`."""
+    front is :func:`weighted_gather_reduce`. Narrower floats run in
+    float32, the outputs in x's dtype."""
     if not on_cuda(x, u, idx):
         return windowed_weighted_reduce_plain(x, u, idx, tile, pad)
     check_no_grad("windowed_weighted_reduce", x, u)
@@ -324,6 +334,7 @@ def windowed_weighted_reduce(
     return out, xg
 
 
+@float32_io("x")
 def windowed_weighted_reduce_plain(
     x: torch.Tensor, u: torch.Tensor, idx: torch.Tensor,
     tile: int = TILE, pad: int = PAD,
@@ -343,6 +354,7 @@ def windowed_weighted_reduce_plain(
 # ---------------------------------------------------------------------------
 
 
+@float32_io()
 def window_knn(
     pos: torch.Tensor,
     k: int,
@@ -361,6 +373,7 @@ def window_knn(
     bit for bit.
 
     Returns [B, M, k] int32 global source indices, ascending distance.
+    Positions in a narrower float are searched in float32.
     """
     q = pos if query_pos is None else query_pos
     if not on_cuda(pos, q):
@@ -401,6 +414,7 @@ def _select_key(d: torch.Tensor, exact: bool) -> torch.Tensor:
     return k32.to(torch.int64) * (1 << 32) + cols
 
 
+@float32_io()
 def window_knn_plain(
     pos: torch.Tensor,
     k: int,
@@ -444,6 +458,7 @@ def window_knn_plain(
 # ---------------------------------------------------------------------------
 
 
+@float32_io()     # a narrower float orders as its float32 image
 def select_min_k(d: torch.Tensor, k: int, exact: bool = True) -> torch.Tensor:
     """Columns of the k smallest entries of each row, ascending: d [B, nt,
     rows, width] f32 -> [B, nt, rows, k] int32.
@@ -483,6 +498,7 @@ def _min_k_key(d: torch.Tensor, exact: bool) -> torch.Tensor:
     return key.mul_(1 << 32).add_(torch.arange(d.shape[-1], device=d.device))
 
 
+@float32_io()
 def select_min_k_plain(d: torch.Tensor, k: int,
                        exact: bool = True) -> torch.Tensor:
     """Plain PyTorch version of :func:`select_min_k`: ``torch.topk`` over

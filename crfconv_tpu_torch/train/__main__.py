@@ -1,0 +1,88 @@
+"""Command-line experiment driver.
+
+    python -m crfconv_tpu_torch.train --dataset S3DIS --root /data/S3DIS \
+        --mode train --model PointConvBig --use-crf --steps 1
+
+Counterpart of the JAX package's CLI (``crfconv_tpu/train/__main__.py``),
+with its flags; every config field can be overridden with ``--set
+key=value`` (a tuple field as comma-separated values). ``--device`` names
+the device (default ``cuda``).
+"""
+
+from __future__ import annotations
+
+import argparse
+import logging
+
+from crfconv_tpu_torch.train.config import CONFIGS
+from crfconv_tpu_torch.train.trainer import Trainer
+from crfconv_tpu_torch.utils.logging import LOGGER, init_logger
+
+
+def _coerce(value: str, ref):
+    """``value`` as the type of the field's current value ``ref``."""
+    if isinstance(ref, bool):
+        return value.lower() in ("1", "true", "yes")
+    if isinstance(ref, int):
+        return int(value)
+    if isinstance(ref, float):
+        return float(value)
+    if isinstance(ref, tuple):
+        return tuple(type(ref[0])(v) for v in value.split(","))
+    return value
+
+
+def parse(argv=None):
+    """(the config, the parsed arguments) of a command line."""
+    p = argparse.ArgumentParser(prog="crfconv_tpu_torch.train")
+    p.add_argument("--dataset", required=True, choices=sorted(CONFIGS))
+    p.add_argument("--root", required=True, help="dataset root directory")
+    p.add_argument("--mode", default=None, choices=["train", "test"])
+    p.add_argument("--model", default=None, help="model registry name")
+    p.add_argument("--use-crf", action="store_true", default=None)
+    p.add_argument("--no-crf", dest="use_crf", action="store_false")
+    p.add_argument("--steps", type=int, default=None)
+    p.add_argument("--epochs", type=int, default=None)
+    p.add_argument("--batch-size", type=int, default=None)
+    p.add_argument("--n-devices", type=int, default=None,
+                   help="data-parallel device count (only 1 is ported)")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--device", default="cuda",
+                   help="torch device of the run (default: cuda)")
+    p.add_argument("--log-file", default=None)
+    p.add_argument(
+        "--set", action="append", default=[], metavar="KEY=VALUE",
+        help="override any config field",
+    )
+    args = p.parse_args(argv)
+
+    cfg = CONFIGS[args.dataset](root=args.root)
+    for name, val in (
+        ("mode", args.mode), ("model_name", args.model),
+        ("use_crf", args.use_crf), ("steps", args.steps),
+        ("epochs", args.epochs), ("batch_size", args.batch_size),
+    ):
+        if val is not None:
+            setattr(cfg, name, val)
+    for kv in args.set:
+        key, _, value = kv.partition("=")
+        if not hasattr(cfg, key):
+            raise SystemExit(f"unknown config field {key!r}")
+        setattr(cfg, key, _coerce(value, getattr(cfg, key)))
+    return cfg, args
+
+
+def main(argv=None):
+    """Run the command line ``argv``; returns the trainer's result (the
+    best val mIoU in train mode, the vote test's scores in test mode)."""
+    cfg, args = parse(argv)
+    init_logger(args.log_file, level=logging.INFO)
+    trainer = Trainer(cfg, seed=args.seed, device=args.device,
+                      n_devices=args.n_devices)
+    result = trainer()
+    logging.getLogger(LOGGER).info("done: %s", result)
+    return result
+
+
+if __name__ == "__main__":
+    main()

@@ -4,13 +4,18 @@ Counterpart of ``crfconv_tpu/train/checkpoint.py``: model, optimizer,
 scheduler and step written with ``torch.save``, atomically (a temporary
 file, then ``os.replace``) so an interrupted save never corrupts the
 latest checkpoint; the best checkpoint by metric (higher is better, a tie
-does not replace it) and the newest ``keep`` are retained.
+does not replace it) and the newest ``keep`` are retained. A checkpoint may
+carry an aux sidecar ``<ckpt>.aux.pkl``: host state (the sampler's arrays,
+the loader's and trainer's generator states, the epoch) pickled, as the
+JAX package writes it, since ``torch.load(weights_only=True)``, which reads
+the model's state, refuses numpy arrays.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import pickle
 import shutil
 from typing import Optional
 
@@ -44,15 +49,23 @@ class CheckpointManager:
 
     def save(
         self, state: TrainState, step: int, metric: Optional[float] = None,
+        aux: Optional[dict] = None,
     ) -> str:
-        """Write a checkpoint of ``state``; track the best by ``metric``
-        (strictly higher replaces it); prune beyond ``keep`` (the best is
-        always retained). Returns the checkpoint's path."""
+        """Write a checkpoint of ``state``, and ``aux`` beside it as its
+        sidecar (atomically too); track the best by ``metric`` (strictly
+        higher replaces it); prune beyond ``keep`` (the best is always
+        retained), sidecars with their checkpoints. Returns the
+        checkpoint's path."""
         name = f"ckpt_{step:08d}.pt"
         path = os.path.join(self.directory, name)
         tmp = path + ".tmp"
         torch.save(state.state_dict(), tmp)
         os.replace(tmp, path)
+        if aux is not None:
+            apath = path + ".aux.pkl"
+            with open(apath + ".tmp", "wb") as f:
+                pickle.dump(aux, f)
+            os.replace(apath + ".tmp", apath)
 
         meta = self._load_meta()
         meta["checkpoints"].append({"name": name, "step": step,
@@ -69,8 +82,9 @@ class CheckpointManager:
             if meta["best"] and victim["name"] == meta["best"]["name"]:
                 continue
             vp = os.path.join(self.directory, victim["name"])
-            if os.path.exists(vp):
-                os.remove(vp)
+            for f in (vp, vp + ".aux.pkl"):
+                if os.path.exists(f):
+                    os.remove(f)
         self._store_meta(meta)
         return path
 
@@ -95,3 +109,15 @@ class CheckpointManager:
             torch.load(path, map_location=device, weights_only=True)
         )
         return state
+
+    def restore_aux(self, path: Optional[str] = None) -> Optional[dict]:
+        """The aux sidecar of a checkpoint (default: the latest), or None
+        if it has none."""
+        path = path or self.latest_path()
+        if path is None:
+            raise FileNotFoundError(f"no checkpoint in {self.directory}")
+        apath = path + ".aux.pkl"
+        if not os.path.exists(apath):
+            return None
+        with open(apath, "rb") as f:
+            return pickle.load(f)

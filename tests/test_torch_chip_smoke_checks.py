@@ -6,7 +6,14 @@ functions a call passes with more. Also the device functions it reads
 from each kernel's sources; and the data phases' checks on the CPU: the
 host pyramid's invariants (column 0 self, indices in range, dilation only
 where asked), the bit-equality of two batches, the synthetic rooms'
-surfaces and the leaky-ReLU backward's launches a ShapeNet exact step."""
+surfaces and the leaky-ReLU backward's launches a ShapeNet exact step; and
+the driver phases' checks: a vote result (an empty one fails), sampler
+draws compared bit for bit, recorded calls held against the plain version
+(bf16 calls widened; a narrow result that is not the float32 one rounded
+fails), the instrumented Trainer's launch checks (a run a step short of
+its launches fails; an eval batch is checked as it runs) and its val
+confusion against the labelled points, and the driver's overhead a step
+(resolved only where the spreads part)."""
 
 from __future__ import annotations
 
@@ -181,3 +188,201 @@ def test_shapenet_exact_launches_counted_on_the_cpu():
         mp.undo()
     assert chip_smoke.SHAPENET_EXACT_PER_STEP == {"leaky_relu_bwd":
                                                   len(calls)}
+
+
+@pytest.mark.parametrize("res,ok", [
+    ({"sub_mIoU": 0.2, "full_mIoU": 0.3, "Overall Acc": 0.9,
+      "full_IoUs": [0.3]}, True),
+    ({}, False),                                     # no coverage: empty
+    ({"sub_mIoU": 0.2, "full_mIoU": 0.3}, False),    # no accuracy
+    ({"sub_mIoU": 1.2, "full_mIoU": 0.3, "Overall Acc": 0.9}, False),
+    ({"sub_mIoU": float("nan"), "full_mIoU": 0.3, "Overall Acc": 0.9},
+     False),
+])
+def test_vote_result_ok(res, ok):
+    assert chip_smoke.vote_result_ok(res) == ok
+
+
+def test_samples_equal():
+    a = [{"pos": np.arange(6.0).reshape(2, 3), "point_idx": np.arange(2)}]
+    b = [{k: v.copy() for k, v in a[0].items()}]
+    assert chip_smoke.samples_equal(a, b)
+    b[0]["point_idx"][1] = 7
+    assert not chip_smoke.samples_equal(a, b)
+    assert not chip_smoke.samples_equal(a, a + a)
+
+
+def _leaky_calls(dtype):
+    import torch
+
+    g = torch.Generator().manual_seed(0)
+    x = (torch.rand((4, 64, 8), generator=g) - 0.5).to(dtype)
+    dy = torch.rand((4, 64, 8), generator=g).to(dtype)
+    return {"leaky_relu_bwd": [((x, dy, 0.1), {})]}
+
+
+@pytest.fixture
+def no_sync(monkeypatch):
+    import torch
+
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+
+
+@pytest.mark.parametrize("narrow", [False, True])
+def test_hold_calls(failures, no_sync, narrow):
+    """Recorded calls held against the plain version: float32 calls as
+    recorded, bf16 ones widened, their narrow result the float32 one
+    rounded."""
+    import torch
+
+    from crfconv_tpu_torch.ops import activation
+
+    sites = {"leaky_relu_bwd": (activation, "leaky_relu_bwd",
+                                activation.leaky_relu_bwd,
+                                activation.leaky_relu_bwd_plain)}
+    path = f"hold test {narrow}"
+    chip_smoke.hold_calls(path, sites, _leaky_calls(
+        torch.bfloat16 if narrow else torch.float32))
+    assert not failures
+    held = chip_smoke.HELD["leaky_relu_bwd"].pop(path)
+    assert held["calls"] == 1 and held["narrow_calls"] == int(narrow)
+
+
+def test_hold_calls_fail(failures, no_sync):
+    """A kernel whose bf16 result is not its float32 result rounded, and
+    one that disagrees with the plain version, fail."""
+    import torch
+
+    from crfconv_tpu_torch.ops import activation
+
+    def off_when_narrow(x, g, slope):
+        out = activation.leaky_relu_bwd_plain(x, g, slope)
+        return out + 1 if out.dtype == torch.bfloat16 else out
+
+    sites = {"leaky_relu_bwd": (activation, "leaky_relu_bwd",
+                                off_when_narrow,
+                                activation.leaky_relu_bwd_plain)}
+    chip_smoke.hold_calls("hold fail", sites, _leaky_calls(torch.bfloat16))
+    assert len(failures) == 1 and "not its float32 result rounded" in \
+        failures[0]
+    failures.clear()
+    sites["leaky_relu_bwd"] = (activation, "leaky_relu_bwd",
+                               lambda x, g, s: g,
+                               activation.leaky_relu_bwd_plain)
+    chip_smoke.hold_calls("hold fail", sites, _leaky_calls(torch.float32))
+    assert failures and "not bit-equal" in failures[0]
+    chip_smoke.HELD["leaky_relu_bwd"].pop("hold fail")
+
+
+class _Event:
+    """torch.cuda.Event's timing on the host clock, for the CPU."""
+
+    def __init__(self, enable_timing=False):
+        self.t = None
+
+    def record(self, stream=None):
+        import time
+
+        self.t = time.perf_counter()
+
+    def elapsed_time(self, other):
+        return (other.t - self.t) * 1e3
+
+
+@pytest.fixture
+def host_events(monkeypatch, no_sync):
+    import torch
+
+    monkeypatch.setattr(torch.cuda, "Event", _Event)
+
+
+@pytest.fixture(scope="module")
+def rooms(tmp_path_factory):
+    from tests.test_data import _make_s3dis_raw
+
+    root = str(tmp_path_factory.mktemp("s3dis"))
+    _make_s3dis_raw(root, n_rooms=2, n_pts=600)
+    return root
+
+
+def _probed(rooms, tmp_path, eval_launches):
+    from crfconv_tpu_torch.train.config import S3DISConfig
+
+    cls = chip_smoke.probed_trainer(
+        "probe test", chip_smoke.train_call_sites(), chip_smoke.call_sites(),
+        eval_launches)
+    cfg = S3DISConfig(root=rooms, grid_size=0.2, sample_num=256,
+                      batch_size=2, epochs=1, train_samples_per_epoch=4,
+                      val_samples_per_epoch=2, layers=(8, 16, 32, 64, 128),
+                      checkpoint_dir=str(tmp_path))
+    tr = cls(cfg, device="cpu")
+    assert cls.made == [tr]
+    return tr
+
+
+def test_probed_trainer_step_launches(failures, host_events, rooms, tmp_path,
+                                      monkeypatch):
+    """The instrumented Trainer's launch checks: on the CPU a wrapper counts
+    no launch. A step reads no counts (its timed window holds the step
+    alone): the run's counts are checked after it, and a run a step short
+    of K15's 47 launches fails. An eval batch expected to launch fails as
+    it runs; expecting none passes. The first step's kernel calls are
+    recorded, an epoch over placed batches gives one event ms a step, and
+    a val epoch's confusion sums to the labelled points of its batches."""
+    from crfconv_tpu_torch import cuda_build
+
+    monkeypatch.setattr(chip_smoke, "LAUNCHES",
+                        {k: {} for k in chip_smoke.REPLACES})
+    monkeypatch.setattr(chip_smoke, "UNITS", {})
+    tr = _probed(rooms, tmp_path, chip_smoke.TWO_VIEW_PER_EVAL)
+    batch = next(iter(tr.train_loader))
+    cuda_build.reset_launch_counts()
+    tr._train_step(tr.state, batch, tr.rng)
+    assert not failures
+    assert len(tr.probe["calls"]["step"]["leaky_relu_bwd"]) == 47
+    chip_smoke.record_launches("probe test", cuda_build.launch_counts(),
+                               chip_smoke.S3DIS_LOADER_PER_STEP, 1, "steps")
+    assert any("0 launches of leaky_relu_bwd in 1 steps, expected 47" in f
+               for f in failures)
+    failures.clear()
+    tr._eval_batch(batch)
+    assert len(failures) == 1 and "an eval batch launched" in failures[0]
+    failures.clear()
+
+    tr = _probed(rooms, tmp_path, {})
+    tr.train_one_epoch(0)
+    tr.val_one_epoch(0)
+    assert not failures
+    assert len(tr.probe["losses"]) == 2 and len(tr.probe["epoch_ms"]) == 1
+    assert tr.probe["val_labelled"] == tr.probe["val_confusion"] == [
+        2 * 256.0]
+    chip_smoke.trainer_checks("probe test", tr, {
+        k: len(v) for k, v in tr.probe["calls"]["step"].items()}, {
+        k: len(v) for k, v in tr.probe["calls"]["eval"].items()})
+    # no checkpoint was written: the last check fails alone
+    assert len(failures) == 1 and "latest" in failures[0]
+    # an epoch over batches placed beforehand: one event ms a step
+    loader = tr.train_loader
+    tr.train_loader = [batch, batch, batch]
+    tr.train_one_epoch(1)
+    tr.train_loader = loader
+    assert len(chip_smoke.step_event_ms(tr.probe, 1)) == 3
+
+
+@pytest.mark.parametrize("trainer,plain,resolved", [
+    # the medians part by 5 ms, and so do the interquartile ranges
+    ([160.0, 160.5, 161.0, 159.5, 160.2], [154.0, 155.0, 154.5, 155.2], True),
+    # the same 5 ms between the medians, inside a spread of +-20 ms
+    ([140.0, 160.0, 180.0, 150.0, 170.0], [135.0, 155.0, 175.0, 165.0],
+     False),
+])
+def test_step_overhead(trainer, plain, resolved):
+    """The driver's overhead a step: the difference of the medians, called
+    resolved only where the two sides' interquartile ranges part."""
+    got = chip_smoke.step_overhead(trainer, plain)
+    assert got["overhead_ms"] == pytest.approx(
+        np.median(trainer) - np.median(plain))
+    assert got["resolved"] is resolved
+    assert got["trainer"]["n"] == len(trainer)
+    assert (got["plain"]["min"], got["plain"]["max"]) == (min(plain),
+                                                          max(plain))

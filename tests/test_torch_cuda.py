@@ -33,7 +33,11 @@ layers of CRFSegNet_Part at B16 x 2048, the coarsest 32 rows wide at
 width 256), each through ten steps and the core's backward; K7 and K8 at
 the flagship's training shapes of B8 x 65536 points. The loader's copies
 to the card on its side stream give the batches of a loader without
-prefetch and of the CPU loader, and its errors reach the consumer.
+prefetch and of the CPU loader, and its errors reach the consumer. Each
+wrapper on the driver's path given bfloat16 (the bf16 compute mode's
+activations) launches its float32 kernel once and rounds its result once;
+a Trainer resumed on the card from its checkpoint and sidecar draws and
+steps as the live one.
 
 Needs an NVIDIA GPU and nvcc; skipped otherwise. On the card run
 
@@ -1459,3 +1463,157 @@ def test_loader_error_on_the_card(dev, prefetch):
         for b in lo:
             got.append(b)
     assert len(got) == 2
+
+
+# --------------------------------------------------------------------------
+# the bf16 compute mode's activations at each wrapper, and the Trainer
+# --------------------------------------------------------------------------
+
+
+def _bf16_cases(dev):
+    """(name, wrapper, plain, args) on the card; the float arguments are
+    the ones given in bfloat16."""
+    from crfconv_tpu_torch.ops import activation
+    from crfconv_tpu_torch.ops.morton import morton_order
+
+    g = torch.Generator().manual_seed(0)
+    b, n, k, h = 2, 8192, 16, 16
+
+    def r(*shape, scale=1.0, shift=0.0):
+        return (torch.rand(shape, generator=g) * scale + shift).to(dev)
+
+    pos = torch.rand((b, n, 3), generator=g)
+    pos = torch.take_along_dim(pos, morton_order(pos)[..., None], 1).to(dev)
+    idx = windowed.window_knn(pos, k)
+    nidx = neighbors.remove_self_loop(idx)
+    sub = torch.arange(0, n, 4, device=dev)
+    mlp = (r(3, h), r(h, shift=0.5), r(h, scale=0.1), r(h, h, scale=0.3),
+           r(h, shift=0.5), r(h, scale=0.1))
+    s = torch.softmax(r(b, n, k - 1, scale=4.0), dim=-1)
+    p = torch.softmax(r(b, n, 4, scale=3.0), dim=-1)
+    return [
+        ("windowed_gather", windowed.windowed_gather,
+         windowed.windowed_gather_plain, (r(b, n, h), idx)),
+        ("windowed_gather_bwd", windowed.windowed_gather_bwd,
+         windowed.windowed_gather_bwd_plain, (r(b, n, k, h), idx, n)),
+        ("windowed_weighted_reduce", windowed.windowed_weighted_reduce,
+         windowed.windowed_weighted_reduce_plain,
+         (r(b, n, h), r(b, n, k, h), idx)),
+        ("point_conv_fused_infer", conv.point_conv_fused_infer,
+         conv.point_conv_fused_infer_plain, (r(b, n, h), pos, idx, *mlp)),
+        ("point_conv_fused_strided", conv.point_conv_fused_strided,
+         conv.point_conv_fused_strided_plain,
+         (r(b, n, h), pos, pos[:, sub].contiguous(),
+          idx[:, sub].contiguous(), r(b, n, 2 * h), *mlp)),
+        ("crf_similarity_message", crf_sim.crf_similarity_message,
+         crf_sim.crf_similarity_message_plain, (r(b, n, h), r(b, n, h), nidx)),
+        ("crf_core", lambda *a: crf_core.crf_core(*a, steps=3),
+         lambda *a: crf_core.crf_core_plain(*a, steps=3),
+         (r(b, n, h), r(b, n, h), s, nidx, r(h, h, scale=0.1))),
+        ("discrete_core", lambda *a: discrete_core.discrete_core(*a, steps=3),
+         lambda *a: discrete_core.discrete_core_plain(*a, steps=3),
+         (p, -torch.log(p), r(b, n, k - 1, scale=0.2), nidx, r(4, 4))),
+        ("leaky_relu_bwd", lambda x, y: activation.leaky_relu_bwd(x, y, 0.1),
+         lambda x, y: activation.leaky_relu_bwd_plain(x, y, 0.1),
+         (r(b, n, h, shift=-0.5), r(b, n, h))),
+    ]
+
+
+BF16_CASES = ["windowed_gather", "windowed_gather_bwd",
+              "windowed_weighted_reduce", "point_conv_fused_infer",
+              "point_conv_fused_strided", "crf_similarity_message", "crf_core",
+              "discrete_core", "leaky_relu_bwd"]
+
+
+@pytest.mark.parametrize("case", BF16_CASES)
+def test_wrapper_takes_bf16_on_the_card(dev, case):
+    """A wrapper given bfloat16 on the card launches its float32 kernel
+    once and rounds the result once: the result is the kernel's on the
+    widened inputs, rounded, and that float32 result is held against the
+    plain version on the same inputs (bit-equal where the kernel adds in
+    the plain order, else rtol 1e-4, atol 1e-5, as chip_smoke.py holds
+    them)."""
+    name, wrapper, plain, args = next(
+        c for c in _bf16_cases(dev) if c[0] == case)
+    narrow = [a.to(torch.bfloat16) if isinstance(a, torch.Tensor)
+              and a.is_floating_point() else a for a in args]
+    wide = [a.float() if isinstance(a, torch.Tensor)
+            and a.is_floating_point() else a for a in narrow]
+    with torch.no_grad():
+        before = cuda_build.launch_counts()
+        got = wrapper(*narrow)
+        launched = {k: v - before[k]
+                    for k, v in cuda_build.launch_counts().items() if v
+                    - before[k]}
+        once = wrapper(*wide)
+        ref = plain(*wide)
+    torch.cuda.synchronize()
+    assert launched and all(v == 1 for v in launched.values()), launched
+    got, once, ref = ((t if isinstance(t, tuple) else (t,))
+                      for t in (got, once, ref))
+    for a, o, r in zip(got, once, ref):
+        assert a.dtype == torch.bfloat16
+        assert torch.equal(a, o.to(torch.bfloat16))
+        assert torch.allclose(o, r, rtol=1e-4, atol=1e-5)
+
+
+def _write_rooms(root, rng, n_pts=3000):
+    """S3DIS's raw layout: Area_1 with two rooms, Area_5 with one; each
+    room's wall and floor ``x y z r g b`` rows."""
+    import os
+
+    raw = os.path.join(root, "raw")
+    base = os.path.join(raw, "Stanford3dDataset_v1.2_Aligned_Version")
+    for area, rooms in ((1, 2), (5, 1)):
+        rels = []
+        for i in range(rooms):
+            rel = f"Area_{area}/office_{i}/Annotations"
+            os.makedirs(os.path.join(base, rel))
+            for cls in ("wall_1", "floor_1", "table_1"):
+                pts = np.column_stack([rng.random((n_pts, 3)) * 3,
+                                       rng.integers(0, 255, (n_pts, 3))])
+                np.savetxt(os.path.join(base, rel, cls + ".txt"), pts,
+                           fmt="%.4f")
+            rels.append(rel)
+        with open(os.path.join(raw, f"Area_{area}_anno.txt"), "w") as f:
+            f.write("\n".join(rels) + "\n")
+
+
+def test_trainer_resume_on_the_card(dev, tmp_path):
+    """The Trainer on the card: an epoch, a checkpoint with its sidecar; a
+    second Trainer resumed from it draws the live one's next samples bit
+    for bit, has its generator's state, and its next step on the same
+    batch gives a bit-identical loss and parameters (windowed steps add in
+    fixed orders)."""
+    from crfconv_tpu_torch.train.config import S3DISConfig
+    from crfconv_tpu_torch.train.trainer import Trainer
+
+    _write_rooms(str(tmp_path / "s3dis"), np.random.default_rng(0))
+    cfg = S3DISConfig(root=str(tmp_path / "s3dis"), grid_size=0.05,
+                      sample_num=2048, batch_size=4, epochs=1,
+                      train_samples_per_epoch=12, val_samples_per_epoch=4,
+                      layers=(16, 32, 64, 128, 256),
+                      checkpoint_dir=str(tmp_path / "ckpt"))
+
+    def make():
+        return Trainer(cfg, seed=3, device=dev)
+
+    live = make()
+    live.train_one_epoch(0)
+    live.ckpt.save(live.state, step=live.state.step,
+                   aux=live._aux_state(1))
+    resumed = make()
+    assert resumed.resume() == 1
+    assert torch.equal(resumed.rng.get_state(), live.rng.get_state())
+    for t in (live, resumed):
+        t.draws = [t.train_loader.dataset.get_sample(t.train_loader.rng)
+                   for _ in range(3)]
+    for a, b in zip(live.draws, resumed.draws):
+        assert all(np.array_equal(a[k], b[k]) for k in a)
+    batch = next(iter(resumed.train_loader))
+    assert batch.pos.is_cuda
+    m1 = live._train_step(live.state, batch, live.rng)
+    m2 = resumed._train_step(resumed.state, batch, resumed.rng)
+    assert torch.equal(m1["loss"], m2["loss"])
+    a, b = live.state.model.state_dict(), resumed.state.model.state_dict()
+    assert all(torch.equal(a[n], b[n]) for n in a)
