@@ -206,6 +206,26 @@
     rounded), the median |logit| difference below 0.1, the loss float32
     and finite, the parameters float32, the scope restored; both modes'
     request and step ms.
+32. The parity harness: ``main([...])`` of crfconv_tpu_torch.parity's CLI
+    in this process, both arms on the card, on a synthetic room corpus
+    (make_synthetic_rooms, 2 rooms an area of 40,000 points, written in a
+    temporary directory) with S3DISConfig's full-width flagship through
+    --scale-kw (use_crf, steps 1, B8 x 8192, windowed, 2-view val): 2
+    epochs of 3 steps and 2 val batches, patience 1, 2 votes. The port arm
+    (the Trainer) launches exactly K1 18, K2 10, K7 2, K8 18, K15 47 a step
+    and K1 30, K2 20, K3 4, K4 2 a val or vote batch (counts set to 0
+    before the run and read after; the oracle arm launches none); its
+    recorded step and val batch held against the plain versions; the
+    oracle's parameters and every input on the card; each arm's full and
+    sub mIoU in [0, 1], the report's keys and delta. Then the arms as
+    separate calls (CRFCONV_PARITY_ARM port, then torch): the second
+    call's report carries both arm files unchanged. Each arm's epoch, step
+    (events), val and vote ms and peak memory; the oracle's B8 x 8192 step
+    beside the port's (exact host pyramid against windowed: a yardstick).
+33. The utils: device_time of phase 4's request in both modes beside
+    median_ms, finite and positive; profiling.trace around two requests
+    writes one trace naming K1's device function; StepTimer over 5
+    synchronised requests gives a finite, positive points/s.
 
 The data phases print which host backend ran (the native library's
 file). Prints the card's name and power limit, one JSON line of kernel results
@@ -4074,12 +4094,13 @@ def step_overhead(trainer_ms: list, plain_ms: list) -> dict:
             "resolved": a["q1"] > b["q3"] or b["q1"] > a["q3"]}
 
 
-def step_event_ms(probe: dict, epoch: int) -> list:
-    """The event ms of each step of ``epoch``: from the epoch's start (or
-    the previous step's end) to the step's end, the batch's wait
-    included."""
+def step_event_ms(probe: dict, epoch: int, steps: int = TRAINER_STEPS
+                  ) -> list:
+    """The event ms of each of the ``steps`` steps of ``epoch``: from the
+    epoch's start (or the previous step's end) to the step's end, the
+    batch's wait included."""
     start, first = probe["epoch_start"][epoch]
-    ends = probe["step_ends"][first:first + TRAINER_STEPS]
+    ends = probe["step_ends"][first:first + steps]
     marks = [start] + ends
     return [a.elapsed_time(b) for a, b in zip(marks, marks[1:])]
 
@@ -4495,6 +4516,381 @@ def bf16_phase(dev, rng, out_dir: str, results: dict) -> dict:
             "calls_per_step": only(EXPECTED_PER_STEP)}
 
 
+# --------------------------------------------------------------------------
+# the parity harness and the utils
+# --------------------------------------------------------------------------
+
+PARITY_ROOMS = 2             # rooms an area of the phase's synthetic corpus
+PARITY_ROOM_POINTS = 40_000  # raw points a room
+PARITY_EPOCHS = 2
+PARITY_STEPS = 3             # train steps an epoch
+PARITY_REPORT_KEYS = {"port_full_mIoU", "torch_full_mIoU", "delta",
+                      "tolerance", "within_tolerance", "port", "torch",
+                      "config"}
+
+
+def probed_oracle(peaks: dict):
+    """The parity harness's oracle class, instrumented: each instance is
+    appended to the class's ``made``; each forward records (train or eval,
+    a CUDA event, the host's clock) in ``marks`` and, where the input, the
+    pyramid or a parameter is not on the card, the devices (each set
+    once) in ``off_card``. Making one puts the peak device memory so far
+    (the port arm's) in ``peaks["port"]`` and resets the peak."""
+    from crfconv_tpu_torch.parity.oracle import TorchPointConvResNet
+
+    made = []
+
+    class Probed(TorchPointConvResNet):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            made.append(self)
+            self.marks, self.off_card = [], []
+            peaks["port"] = torch.cuda.max_memory_allocated() / 2 ** 30
+            torch.cuda.reset_peak_memory_stats()
+
+        def forward(self, x, scales):
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            self.marks.append(("train" if self.training else "eval", ev,
+                               time.perf_counter()))
+            tensors = ([x, *self.parameters()]
+                       + [t for s in scales for t in s.values()
+                          if t is not None])
+            where = sorted({t.device.type for t in tensors})
+            if where != ["cuda"] and where not in self.off_card:
+                self.off_card.append(where)
+            return super().forward(x, scales)
+
+    Probed.made = made
+    return Probed
+
+
+def timed_vote_eval(passes: list):
+    """``train.vote.labeled_vote_eval`` whose vote passes are timed (host
+    clock between synchronisations; each arm's pass ms appended to a list
+    of ``passes``); a pass beyond VOTE_MAX_PASSES raises."""
+    from crfconv_tpu_torch.train import vote
+
+    inner = vote.labeled_vote_eval
+
+    def wrapper(ds, vote_epoch_fn, test_probs, num_votes=100, **kw):
+        ms = []
+        passes.append(ms)
+
+        def timed_pass():
+            if len(ms) >= VOTE_MAX_PASSES:
+                raise RuntimeError(f"no coverage after {VOTE_MAX_PASSES} "
+                                   "vote passes")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            vote_epoch_fn()
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+
+        return inner(ds, timed_pass, test_probs, num_votes, **kw)
+
+    return wrapper
+
+
+def oracle_times(marks: list, steps: int, val_batches: int) -> dict:
+    """The oracle arm's times from its forwards' marks: each step's event
+    ms (one train forward's start to the next's in an epoch, the batch's
+    wait included), each epoch's ms (its first train forward to its first
+    val forward, host clock) and each val batch's (an epoch's val forwards
+    to the next epoch's first train forward, host clock, over the
+    batches)."""
+    epochs, i = [], 0
+    while i < len(marks) and marks[i][0] == "train":
+        train = marks[i:i + steps]
+        val = marks[i + steps:i + steps + val_batches]
+        nxt = marks[i + steps + val_batches:i + steps + val_batches + 1]
+        epochs.append((train, val, nxt))
+        i += steps + val_batches
+    step_ms = [a[1].elapsed_time(b[1]) for train, _, _ in epochs
+               for a, b in zip(train, train[1:])]
+    epoch_ms = [(val[0][2] - train[0][2]) * 1e3 for train, val, _ in epochs
+                if val]
+    val_ms = [(nxt[0][2] - val[0][2]) * 1e3 / val_batches
+              for _, val, nxt in epochs if val and nxt and nxt[0][0]
+              == "train"]
+    return {"epochs": len(epochs), "steps_ms": step_ms,
+            "step_ms": statistics.median(step_ms) if step_ms else None,
+            "epoch_ms": epoch_ms, "val_ms_a_batch": val_ms}
+
+
+@contextlib.contextmanager
+def env_var(name: str, value: str):
+    """``os.environ[name]`` set to ``value`` for the block."""
+    old = os.environ.get(name)
+    os.environ[name] = value
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop(name, None)
+        else:
+            os.environ[name] = old
+
+
+def parity_report_ok(label: str, report: dict) -> None:
+    """The report's keys, each arm's mIoUs in [0, 1], the delta their
+    difference and the tolerance flag its test."""
+    expect(set(report) == PARITY_REPORT_KEYS, f"{label}: report keys "
+           f"{sorted(report)}")
+    if set(report) != PARITY_REPORT_KEYS:
+        return
+    for arm in ("port", "torch"):
+        expect(vote_result_ok(report[arm])
+               and report[f"{arm}_full_mIoU"] == report[arm]["full_mIoU"],
+               f"{label}: the {arm} arm's result {report[arm]}")
+    expect(report["delta"] == report["port_full_mIoU"]
+           - report["torch_full_mIoU"] and report["within_tolerance"]
+           == (abs(report["delta"]) <= report["tolerance"]),
+           f"{label}: delta {report['delta']}, within "
+           f"{report['within_tolerance']}")
+
+
+def parity_phase(dev, rng, out_dir: str, results: dict) -> dict:
+    """Phase 32: the parity harness, ``main([...])`` of
+    crfconv_tpu_torch.parity.__main__ in this process, both arms on the
+    card: a synthetic room corpus (PARITY_ROOMS rooms an area of
+    PARITY_ROOM_POINTS points) and S3DISConfig's full-width flagship
+    (use_crf, steps 1, B8 x 8192, windowed, 2-view val) through
+    ``--scale-kw``: PARITY_EPOCHS epochs of PARITY_STEPS steps and
+    TRAINER_VAL_BATCHES val batches, patience 1, 2 votes. The port arm's
+    launch counts (the main path: set to 0 before the run, read after; the
+    oracle arm launches none), a recorded step and val batch held against
+    the plain versions; the oracle and its inputs on the card; the report.
+    Then the arms once more as separate calls (CRFCONV_PARITY_ARM port,
+    then torch): the combining call's report carries both files."""
+    import tempfile
+
+    from crfconv_tpu_torch import cuda_build
+    from crfconv_tpu_torch.data.datasets import S3DISRoomDataset
+    from crfconv_tpu_torch.parity import __main__ as parity_cli
+    from crfconv_tpu_torch.parity import oracle
+    from crfconv_tpu_torch.parity.synthetic import make_synthetic_rooms
+    from crfconv_tpu_torch.train import trainer as trainer_mod
+    from crfconv_tpu_torch.train import vote
+
+    step_sites, eval_sites = train_call_sites(), call_sites()
+    cls = probed_trainer("parity port", step_sites, eval_sites,
+                         TWO_VIEW_PER_EVAL)
+    peaks, passes = {}, []
+    ocls = probed_oracle(peaks)
+    scale_kw = {"sample_num": N, "batch_size": B, "use_crf": True,
+                "steps": 1, "neighbor_regime": "windowed", "eval_views": 2,
+                "train_samples_per_epoch": PARITY_STEPS * B,
+                "val_samples_per_epoch": TRAINER_VAL_BATCHES * B}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_parity_") as tmp:
+        root = os.path.join(tmp, "rooms")
+        t0 = time.perf_counter()
+        raw_points = make_synthetic_rooms(
+            root, rooms_per_area=PARITY_ROOMS,
+            pts_per_room=PARITY_ROOM_POINTS, seed=SEED)
+        corpus_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        S3DISRoomDataset(root, grid_size=0.04, num_points=N)
+        parse_s = time.perf_counter() - t0
+        argv = ["--root", root, "--corpus", "rooms",
+                "--rooms-per-area", str(PARITY_ROOMS),
+                "--pts-per-room", str(PARITY_ROOM_POINTS),
+                "--epochs", str(PARITY_EPOCHS), "--patience", "1",
+                "--num-votes", "2", "--seed", str(SEED),
+                "--device", str(dev), "--scale-kw", json.dumps(scale_kw)]
+        probes = [(trainer_mod, "Trainer", cls),
+                  (oracle, "TorchPointConvResNet", ocls),
+                  (vote, "labeled_vote_eval", timed_vote_eval(passes))]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        cuda_build.reset_launch_counts()
+        t0 = time.perf_counter()
+        try:
+            with patched(probes), env_var("CRFCONV_PARITY_ARM", "both"):
+                report = parity_cli.main(argv + [
+                    "--out", os.path.join(out_dir, "chip_smoke_parity.json")])
+        except RuntimeError as e:     # no vote coverage within the cap
+            expect(False, f"parity: {e}")
+            report = {}
+        torch.cuda.synchronize()
+        both_s = time.perf_counter() - t0
+        counts = cuda_build.launch_counts()
+        peaks["torch"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        port, orc = cls.made[-1], ocls.made[-1] if ocls.made else None
+        probe = port.probe
+        n_steps = len(probe["losses"])
+        expect(n_steps == PARITY_EPOCHS * PARITY_STEPS
+               and probe["val_batches"] == [TRAINER_VAL_BATCHES]
+               * PARITY_EPOCHS, f"parity port: {n_steps} steps, val "
+               f"batches {probe['val_batches']}")
+        cfg = port.cfg
+        expect(cfg.sample_num == N and cfg.batch_size == B
+               and cfg.eval_views == 2 and port.mode.windowed
+               and cfg.model_name == "PointConvBig" and cfg.use_crf
+               and cfg.steps == 1, f"parity port: config {cfg}")
+        # every launch of the run is the port arm's: the oracle runs none
+        record_launches("parity port", counts, {
+            k: n_steps * S3DIS_LOADER_PER_STEP.get(k, 0)
+            + probe["eval_batches"] * TWO_VIEW_PER_EVAL.get(k, 0)
+            for k in REPLACES}, 1, "runs")
+        trainer_checks("parity port", port, S3DIS_LOADER_PER_STEP,
+                       TWO_VIEW_PER_EVAL)
+        hold_calls("parity port train", step_sites, probe["calls"]["step"])
+        hold_calls("parity port val", eval_sites, probe["calls"]["eval"])
+        probe["calls"] = {"step": None, "eval": None}
+        expect(orc is not None and orc.marks and not orc.off_card,
+               "parity torch: the oracle ran off the card "
+               f"{orc.off_card if orc is not None else 'never'}")
+        parity_report_ok("parity", report)
+        port_steps = [t for e in range(len(probe["epoch_start"]))
+                      for t in step_event_ms(probe, e, PARITY_STEPS)[1:]]
+        port_t = {
+            "epoch_ms": probe["epoch_ms"], "steps_ms": port_steps,
+            "step_ms": statistics.median(port_steps),
+            "val_ms_a_batch": [v / n for v, n in zip(probe["val_ms"],
+                                                     probe["val_batches"])],
+            "vote_ms": passes[0] if passes else []}
+        orc_t = oracle_times(orc.marks if orc is not None else [],
+                             PARITY_STEPS, TRAINER_VAL_BATCHES)
+        orc_t["vote_ms"] = passes[1] if len(passes) > 1 else []
+        del port, orc, probe
+        cls.made.clear()
+        ocls.made.clear()
+        torch.cuda.empty_cache()
+
+        # the arms once more, as separate calls in the same root
+        for f in ("parity_port.json", "parity_torch.json"):
+            os.remove(os.path.join(root, f))
+        t0 = time.perf_counter()
+        with patched(probes):
+            with env_var("CRFCONV_PARITY_ARM", "port"):
+                first = parity_cli.main(argv)
+            with env_var("CRFCONV_PARITY_ARM", "torch"):
+                split = parity_cli.main(argv)
+        split_s = time.perf_counter() - t0
+        files = {}
+        for arm in ("port", "torch"):
+            with open(os.path.join(root, f"parity_{arm}.json")) as fh:
+                files[arm] = json.load(fh)
+    expect(first.get("pending") == "torch" and "torch" not in first,
+           f"parity split: the port call returned {sorted(first)}")
+    parity_report_ok("parity split", split)
+    expect(split.get("port") == files["port"]
+           and split.get("torch") == files["torch"],
+           "parity split: the report does not carry the arms' files")
+    same = {arm: {k: v for k, v in split.get(arm, {}).items()
+                  if k != "wall_s"}
+            == {k: v for k, v in report.get(arm, {}).items()
+                if k != "wall_s"} for arm in ("port", "torch")}
+    cls.made.clear()
+    ocls.made.clear()
+
+    def fmt(t):
+        med = (lambda v: f"{statistics.median(v):.3f}" if v else "n/a")
+        return (f"epoch {med(t['epoch_ms'])} ms, step {t['step_ms']:.3f} ms "
+                f"(events, median of {len(t['steps_ms'])}), val "
+                f"{med(t['val_ms_a_batch'])} ms a batch, vote "
+                f"{med(t['vote_ms'])} ms a pass ({len(t['vote_ms'])} passes)"
+                if t["step_ms"] is not None else "no steps")
+
+    print(f"# parity ({CARD}): corpus {raw_points} raw points written in "
+          f"{corpus_s:.2f} s, parsed in {parse_s:.2f} s; both arms in "
+          f"{both_s:.2f} s, the split calls in {split_s:.2f} s", flush=True)
+    print(f"# parity port arm (the flagship, windowed, 2-view val; peak "
+          f"{peaks.get('port', float('nan')):.2f} GiB): {fmt(port_t)}; "
+          f"full mIoU {report.get('port_full_mIoU')}", flush=True)
+    print(f"# parity torch arm (the oracle, exact host pyramid; peak "
+          f"{peaks['torch']:.2f} GiB): {fmt(orc_t)}; full mIoU "
+          f"{report.get('torch_full_mIoU')}", flush=True)
+    orc_step = orc_t["step_ms"]
+    orc_step = "n/a" if orc_step is None else f"{orc_step:.3f}"
+    print(f"# parity: B{B}x{N} step, port {port_t['step_ms']:.3f} ms "
+          f"(windowed) beside the oracle's {orc_step} ms (exact host "
+          f"pyramid): a yardstick, not like for like; "
+          f"delta {report.get('delta')}; the split calls' results equal "
+          f"the combined run's {same}", flush=True)
+    return {"raw_points": raw_points, "corpus_s": corpus_s,
+            "parse_s": parse_s, "both_s": both_s, "split_s": split_s,
+            "port": port_t, "torch": orc_t, "peak_gib": peaks,
+            "report": {k: v for k, v in report.items()
+                       if k not in ("port", "torch")},
+            "arm_results": {arm: {k: v for k, v in report.get(arm, {}).items()
+                                  if k != "full_IoUs"}
+                            for arm in ("port", "torch")},
+            "split_equal_to_combined": same,
+            "calls_per_step": only(S3DIS_LOADER_PER_STEP),
+            "calls_per_val_batch": only(TWO_VIEW_PER_EVAL)}
+
+
+UTILS_ITERS = 5     # device_time's n: 1 + 9n requests a mode
+
+
+def utils_phase(dev, rng, out_dir: str, results: dict) -> dict:
+    """Phase 33: the utils on the card. ``device_time`` of the flagship's
+    request (phase 4's model and batch) in both modes beside ``median_ms``
+    of the same request; ``profiling.trace`` around requests writes a trace
+    naming K1's device function; ``StepTimer`` over 5 synchronised
+    requests."""
+    import glob
+    import tempfile
+
+    from crfconv_tpu_torch import Predictor
+    from crfconv_tpu_torch.utils import device_time
+    from crfconv_tpu_torch.utils.profiling import StepTimer, trace
+
+    model = make_model(dev)
+    predictor = Predictor(model, device=dev, seed=SEED)
+    pos, feats = request(rng, dev)
+
+    def serve(carry, p):
+        # the carry orders nothing the stream does not: the requests run
+        # in turn on one stream
+        return p.predict_logits(pos, feats)
+
+    logits = predictor.predict_logits(pos, feats)
+    times = {mode: device_time(serve, logits, iters=UTILS_ITERS, mode=mode,
+                               env=predictor) * 1e3
+             for mode in ("loop", "chain")}
+    times["median_ms"] = median_ms(lambda: predictor.predict_logits(
+        pos, feats), runs=10)
+    expect(all(np.isfinite(v) and v > 0 for v in times.values()),
+           f"utils: device_time and median_ms {times}")
+
+    k1 = kernel_functions("windowed_gather")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_trace_") as tmp:
+        with trace(tmp):
+            for _ in range(2):
+                time.sleep(0.05)
+                predictor.predict_logits(pos, feats)
+                torch.cuda.synchronize()
+            time.sleep(0.05)
+        files = glob.glob(os.path.join(tmp, "*.json"))
+        text = ""
+        if len(files) == 1:
+            with open(files[0]) as fh:
+                text = fh.read()
+        named = [f for f in k1 if f in text]
+        trace_bytes = len(text)
+    expect(len(files) == 1 and bool(named), f"utils: trace files {files}, "
+           f"K1's functions {k1} named: {named}")
+
+    timer = StepTimer(warmup_steps=1)
+    for _ in range(6):
+        predictor.predict_logits(pos, feats)
+        torch.cuda.synchronize()
+        timer.tick(B * N)
+    summary = timer.summary()
+    expect(summary["steps"] == 5 and np.isfinite(summary["points_per_sec"])
+           and summary["points_per_sec"] > 0, f"utils: StepTimer {summary}")
+    print(f"# utils ({CARD}): flagship request (B{B}x{N}) device_time loop "
+          f"{times['loop']:.3f} ms, chain {times['chain']:.3f} ms, "
+          f"median_ms {times['median_ms']:.3f} ms; trace of 2 requests "
+          f"{trace_bytes} bytes naming {named}; StepTimer {summary}",
+          flush=True)
+    return {"device_time_ms": times, "trace_bytes": trace_bytes,
+            "trace_names": named, "step_timer": summary}
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -4647,7 +5043,8 @@ def main() -> int:
                     ("shapenet_loader", shapenet_loader_phase),
                     ("trainer_s3dis", trainer_s3dis_phase),
                     ("trainer_shapenet", trainer_shapenet_phase),
-                    ("bf16", bf16_phase)):
+                    ("bf16", bf16_phase), ("parity", parity_phase),
+                    ("utils", utils_phase)):
         run_path(key, fn)
     # the driver's overhead a step: the Trainer's S3DIS steps against the
     # plain step's in a loop, in turns on the same placed batches,
@@ -4674,10 +5071,10 @@ def main() -> int:
     # serve and train, ScanNet exact serve and train, ScanNet-discrete exact
     # train; S3DIS and ShapeNet training fed by the loader; the Trainer's
     # S3DIS run and vote test and its ShapeNet run; the bf16 request and
-    # step). The times are those of the first path whose calls were held
-    # against the plain version; every path's are in "phases", the calls
-    # held outside a kernel phase in "held_on", and max_abs_err is the
-    # largest over both
+    # step; the parity harness's port arm). The times are those of the
+    # first path whose calls were held against the plain version; every
+    # path's are in "phases", the calls held outside a kernel phase in
+    # "held_on", and max_abs_err is the largest over both
     kernels = []
     for name in REPLACES:
         phases = results[name]

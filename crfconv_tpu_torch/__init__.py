@@ -15,11 +15,18 @@ the host, with the host pyramid (``build_pyramid``) for the exact regime.
 epochs, validation, resumable checkpoints, the vote test
 (``labeled_vote_eval``), ShapeNet's part IoU and, with ``streaming_eval``,
 SemanticKITTI's per-sequence eval; ``compute_dtype_scope(torch.bfloat16)``
-runs the models' products in bfloat16.
+runs the models' products in bfloat16. The parity harness (``python -m
+crfconv_tpu_torch.parity``) trains the flagship beside a plain-PyTorch
+oracle of the reference recipe and compares their vote-tested mIoU;
+``utils`` holds device timing (``device_time``), tracing and
+visualization. Every name of the JAX package's ``__all__`` has its
+counterpart here under the same name.
 """
 
+__version__ = "0.1.0"
+
 from crfconv_tpu_torch.convert import from_flax
-from crfconv_tpu_torch.data.batch import RawBatch
+from crfconv_tpu_torch.data.batch import PointBatch, RawBatch, ScaleData
 from crfconv_tpu_torch.data.datasets import (
     NPM3DDataset, S3DISBlockDataset, S3DISRoom, S3DISRoomDataset,
     ScanNetDataset, Semantic3D, Semantic3DBlockDataset,
@@ -31,6 +38,7 @@ from crfconv_tpu_torch.data.loader import (
 from crfconv_tpu_torch.data.pipeline import (
     build_pyramid, build_pyramid_device, make_batch,
 )
+from crfconv_tpu_torch.data.ply import read_ply, write_ply
 from crfconv_tpu_torch.models import (
     BaselineDiscreteCRFSegNet, BaselineSegNet, CRFSegNet, CRFSegNet_Part,
     DualCRFSegNet, PointConvResNet, get_model,
@@ -38,18 +46,22 @@ from crfconv_tpu_torch.models import (
 from crfconv_tpu_torch.models.common import (
     compute_dtype_scope, get_compute_dtype, set_compute_dtype,
 )
+from crfconv_tpu_torch.ops.knn_host import knn_batch
 from crfconv_tpu_torch.ops.neighbors import NeighborMode, knn_bruteforce
+from crfconv_tpu_torch.ops.subsample import grid_subsample
 from crfconv_tpu_torch.ops.windowed import (
     build_pyramid_windowed, select_min_k,
 )
 from crfconv_tpu_torch.serve import Predictor
 from crfconv_tpu_torch.train.checkpoint import CheckpointManager
 from crfconv_tpu_torch.train.kitti_eval import streaming_eval
+from crfconv_tpu_torch.train.metrics import RunningScore, RunningScoreShapeNet
 from crfconv_tpu_torch.train.train_state import (
     TrainState, make_eval_step, make_train_step,
 )
 from crfconv_tpu_torch.train.trainer import Trainer
 from crfconv_tpu_torch.train.vote import labeled_vote_eval
+from crfconv_tpu_torch.utils.logging import init_logger
 
 __all__ = [
     "BaselineDiscreteCRFSegNet",
@@ -61,12 +73,16 @@ __all__ = [
     "MultiscaleLoader",
     "NPM3DDataset",
     "NeighborMode",
+    "PointBatch",
     "PointConvResNet",
     "Predictor",
     "RawBatch",
+    "RunningScore",
+    "RunningScoreShapeNet",
     "S3DISBlockDataset",
     "S3DISRoom",
     "S3DISRoomDataset",
+    "ScaleData",
     "ScanNetDataset",
     "Semantic3D",
     "Semantic3DBlockDataset",
@@ -82,6 +98,9 @@ __all__ = [
     "from_flax",
     "get_compute_dtype",
     "get_model",
+    "grid_subsample",
+    "init_logger",
+    "knn_batch",
     "knn_bruteforce",
     "labeled_vote_eval",
     "loader_load_state_dict",
@@ -89,7 +108,10 @@ __all__ = [
     "make_batch",
     "make_eval_step",
     "make_train_step",
+    "read_ply",
     "select_min_k",
     "set_compute_dtype",
     "streaming_eval",
+    "write_ply",
+    "__version__",
 ]

@@ -13,11 +13,16 @@ held against the plain version evaluated in float64: where the check
 fails, K4's error and the float32 plain version's are put side by side,
 to tell a kernel fault (K4 alone far from float64) from two float32
 roundings that part by more than the check allows: on the failing calls,
-the median and largest ratio of K4's error to the plain version's.
+the median and largest ratio of K4's error to the plain version's. The
+test's current msg check, K4 against float64 within
+``tests/test_torch_cuda.py::msg_error_bound``, is counted beside it
+(``bound_failed_calls``, and the largest error over the bound of K4 and of
+the plain version).
 Prints one JSON object (and writes it to ``out.json`` where given).
 Needs an NVIDIA GPU.
 """
 
+import importlib.util
 import json
 import os
 import sys
@@ -32,6 +37,17 @@ from crfconv_tpu_torch import cuda_build  # noqa: E402
 from crfconv_tpu_torch.ops import crf_sim  # noqa: E402
 
 N, K = 4096, 15
+
+
+def _test_module():
+    """tests/test_torch_cuda.py, loaded by its path (a ``tests`` package
+    installed elsewhere may shadow the repository's directory)."""
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+        __file__))), "tests", "test_torch_cuda.py")
+    spec = importlib.util.spec_from_file_location("test_torch_cuda", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def _close(a, b, rtol, atol) -> bool:
@@ -58,8 +74,9 @@ def main(trials: int = 200, out: str = None) -> dict:
     idx = torch.as_tensor(
         np.arange(N)[None, :, None] + rng.integers(-40, 40, (2, N, K)),
         dtype=torch.int32, device=dev)
-    failed, worst = [], {}
-    calls = 0
+    msg_error_bound = _test_module().msg_error_bound
+    failed, worst, over_bound = [], {}, {}
+    calls = bound_failed = 0
     for trial in range(trials):
         gen = torch.Generator(device=dev).manual_seed(trial)
         for h in (8, 16, 32):
@@ -69,6 +86,14 @@ def main(trials: int = 200, out: str = None) -> dict:
             msg_d, s_d = crf_sim.crf_similarity_message_plain(
                 y.double(), z.double(), idx)
             calls += 1
+            bound = msg_error_bound(y, z, idx)
+            over = {"kernel": float(((msg.double() - msg_d).abs()
+                                     / bound).max()),
+                    "plain": float(((msg_p.double() - msg_d).abs()
+                                    / bound).max())}
+            bound_failed += over["kernel"] > 1
+            for k_, v in over.items():
+                over_bound[k_] = max(over_bound.get(k_, 0.0), v)
             errs = {
                 "msg_kernel_vs_f64": _gap(msg, msg_d),
                 "msg_plain_vs_f64": _gap(msg_p, msg_d),
@@ -101,6 +126,8 @@ def main(trials: int = 200, out: str = None) -> dict:
                "kernel_farther": sum(r > 1 for r in ratio)}
                if ratio else None),
            "failed": failed[:20], "worst": worst,
+           "bound_failed_calls": bound_failed,
+           "max_err_over_bound": over_bound,
            "card": torch.cuda.get_device_name(0)}
     line = json.dumps(res)
     print(line, flush=True)
