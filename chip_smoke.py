@@ -226,6 +226,25 @@
     median_ms, finite and positive; profiling.trace around two requests
     writes one trace naming K1's device function; StepTimer over 5
     synchronised requests gives a finite, positive points/s.
+34. Data-parallel training (crfconv_tpu_torch.parallel): (a) an nccl
+    group of one, DP_WORLD1_STEPS flagship steps through
+    make_parallel_train_step bit-equal to the plain step's; (b) two gloo
+    ranks spawned by launch on this card (nccl takes one rank a card),
+    each on half of B8 x 8192: DP_STEPS flagship steps (dropout 0.5)
+    against the one-process steps on the whole batches (loss rtol 1e-5,
+    states at the train-step tolerances, the ranks bit-equal after every
+    step), launches exact a rank-step (K1 18, K2 10, K7 2, K8 18, K15 47),
+    every kernel call of a rank's first step held against its plain
+    version; each rank's step ms (events), its all-reduces' ms, bytes and
+    calls a step (the gradients' bucket, the batch norms' statistics, the
+    loss and metrics) and peak memory; (c) the exact regime's step (its
+    pyramid on the card, K6 10 and K15 47 a rank-step), checked alike;
+    (d) a two-rank Trainer on phase 27's rooms (B4 x 8192 a rank, 2-view
+    val): DP_TRAINER_EPOCHS epochs of DP_TRAINER_STEPS steps with exact
+    launches, rank 0 the only checkpoint writer, a run resumed from the
+    first epoch's checkpoint bit-identical to the uninterrupted one. Two
+    ranks on one card measure correctness and the collectives' cost, not
+    scaling.
 
 The data phases print which host backend ran (the native library's
 file). Prints the card's name and power limit, one JSON line of kernel results
@@ -4891,6 +4910,514 @@ def utils_phase(dev, rng, out_dir: str, results: dict) -> dict:
             "trace_names": named, "step_timer": summary}
 
 
+# --------------------------------------------------------------------------
+# 34. data-parallel training
+# --------------------------------------------------------------------------
+
+DP_RANKS = 2            # gloo ranks sharing the one card
+DP_STEPS = 3            # global steps of the flagship and of the exact step
+DP_WORLD1_STEPS = 2     # steps of the nccl group of one
+DP_TRAINER_STEPS = 3    # train steps an epoch of the two-rank Trainer
+DP_TRAINER_EPOCHS = 2
+# the exact regime's flagship step: its pyramid on the card (K6 10 launches)
+# and the flagship's activations
+DP_EXACT_PER_STEP = {"select_min_k": 10,
+                     "leaky_relu_bwd": FLAGSHIP_LEAKY_PER_STEP}
+
+
+def cuda_mark():
+    """A timing event recorded on the card's current stream."""
+    e = torch.cuda.Event(enable_timing=True)
+    e.record()
+    return e
+
+
+class CollectiveTimer:
+    """Every ``torch.distributed.all_reduce`` of a rank's step timed
+    (events around the call) and sized, by what called it: the gradients'
+    bucket, the step's loss and confusion, else a batch norm's statistics
+    (forward and backward). Under gloo a call's window holds the copies
+    through the host and the reduction there, and also the wait for the
+    peer rank to reach the same call (the peer's compute, and both ranks'
+    share of one host): :func:`replay_collectives` measures the calls' own
+    cost apart from that wait."""
+
+    def __init__(self):
+        self.what = "batch_norm"
+        self.marks = []
+        self.calls = []     # (what, numel, dtype) of the last split's calls
+
+    @contextlib.contextmanager
+    def installed(self):
+        import torch.distributed as dist
+
+        from crfconv_tpu_torch.train import train_state
+
+        reduce, grads = dist.all_reduce, train_state.all_reduce_gradients
+        metrics = train_state.all_reduce_sum
+
+        def timed(t, *a, **kw):
+            m0 = cuda_mark()
+            out = reduce(t, *a, **kw)
+            self.marks.append((self.what, m0, cuda_mark(), t.numel(),
+                               t.dtype))
+            return out
+
+        def tagged(fn, what):
+            def run(*a, **kw):
+                self.what = what
+                try:
+                    return fn(*a, **kw)
+                finally:
+                    self.what = "batch_norm"
+            return run
+
+        with patched([(dist, "all_reduce", timed),
+                      (train_state, "all_reduce_gradients",
+                       tagged(grads, "gradients")),
+                      (train_state, "all_reduce_sum",
+                       tagged(metrics, "loss_and_metrics"))]):
+            yield
+
+    def split(self) -> dict:
+        """{what: {"ms", "bytes", "calls"}} since the last split; ``calls``
+        keeps their sizes for :func:`replay_collectives`."""
+        out = {}
+        for what, a, b, n, dtype in self.marks:
+            b.synchronize()
+            r = out.setdefault(what, {"ms": 0.0, "bytes": 0, "calls": 0})
+            r["ms"] += a.elapsed_time(b)
+            r["bytes"] += n * dtype.itemsize
+            r["calls"] += 1
+        self.calls = [(what, n, dtype) for what, _, _, n, dtype in self.marks]
+        self.marks = []
+        return out
+
+
+def replay_collectives(calls, mesh) -> dict:
+    """The own cost of a step's all-reduces: each of ``calls`` (what,
+    numel, dtype) reduced again on the card once the stream is drained and
+    a barrier has brought every rank to it, so that its window (events)
+    holds the copies and the reduction and no wait for a peer.
+    {what: {"ms", "calls"}}."""
+    import torch.distributed as dist
+
+    out = {}
+    for what, n, dtype in calls:
+        t = torch.ones(n, dtype=dtype, device=mesh.device)
+        torch.cuda.synchronize()
+        dist.barrier(group=mesh.group)
+        a = cuda_mark()
+        dist.all_reduce(t, group=mesh.group)
+        b = cuda_mark()
+        b.synchronize()
+        r = out.setdefault(what, {"ms": 0.0, "calls": 0})
+        r["ms"] += a.elapsed_time(b)
+        r["calls"] += 1
+    return out
+
+
+def dp_step_fn(dev, exact: bool):
+    """The flagship's train step of phase 34: windowed on a RawBatch
+    (make_train_step's default), or exact with its pyramid built on the
+    card from the step's generator (build_pyramid_device, K6), then the
+    dropout from the same generator."""
+    from crfconv_tpu_torch import build_pyramid_device, make_train_step
+    from crfconv_tpu_torch.data.batch import PointBatch
+
+    if not exact:
+        return make_train_step()
+    step = make_train_step(EXACT, windowed=False)
+
+    def exact_step(state, raw, gen):
+        return step(state, PointBatch(x=raw.x, y=raw.y,
+                                      scales=build_pyramid_device(
+                                          raw.pos, generator=gen,
+                                          device=dev)), gen)
+
+    return exact_step
+
+
+def dp_sites(exact: bool) -> dict:
+    from crfconv_tpu_torch.ops import neighbors, windowed
+
+    if not exact:
+        return train_call_sites()
+    return {"select_min_k": (neighbors, "select_min_k",
+                             windowed.select_min_k,
+                             windowed.select_min_k_plain),
+            "leaky_relu_bwd": train_call_sites()["leaky_relu_bwd"]}
+
+
+def dp_raw(batch: dict, dev):
+    from crfconv_tpu_torch import RawBatch
+
+    return RawBatch(pos=torch.as_tensor(batch["pos"], device=dev),
+                    x=torch.as_tensor(batch["x"], device=dev),
+                    y=torch.as_tensor(batch["y"], device=dev))
+
+
+def dp_host_state(model) -> dict:
+    """A copy of every parameter and buffer on the host."""
+    return {k: v.detach().to("cpu", copy=True).numpy() for k, v in
+            model.state_dict().items()}
+
+
+def dp_one_process(dev, batches, exact: bool) -> dict:
+    """The one-process steps on the whole batches: each step's loss and
+    state (on the host)."""
+    state = make_train_state(dev)
+    step = dp_step_fn(dev, exact)
+    out = {"loss": [], "states": []}
+    for i, b in enumerate(batches):
+        m = step(state, dp_raw(b, dev), step_generator(dev, i))
+        out["loss"].append(float(m["loss"]))
+        out["states"].append(dp_host_state(state.model))
+    del state
+    torch.cuda.empty_cache()
+    return out
+
+
+def dp_rank_steps(mesh, spec: dict, exact: bool) -> dict:
+    """This rank's global steps on its shard of each batch of ``spec``: the
+    first recorded (every kernel call held against its plain version
+    afterwards), the launches, the step's event ms and its collectives of
+    each step; the losses and states."""
+    from crfconv_tpu_torch import cuda_build
+    from crfconv_tpu_torch.parallel import (
+        make_parallel_train_step, replicate, shard_batch,
+    )
+
+    dev = mesh.device
+    label = f"data-parallel {'exact' if exact else 'flagship'} rank " \
+            f"{mesh.rank}"
+    state = make_train_state(dev)
+    replicate(state, mesh)
+    step = make_parallel_train_step(dp_step_fn(dev, exact), mesh)
+    sites = dp_sites(exact)
+    comm = CollectiveTimer()
+    out = {"loss": [], "states": [], "counts": [], "step_ms": [],
+           "collectives": []}
+    calls = None
+    for i, b in enumerate(spec["batches"]):
+        raw = shard_batch(dp_raw(b, dev), mesh)
+        gen = step_generator(dev, i)
+        before = cuda_build.launch_counts()
+        with comm.installed():
+            m0 = cuda_mark()
+            if calls is None:
+                got = []
+                calls = record_calls(sites, lambda: got.append(
+                    step(state, raw, gen)))
+                m = got[0]
+            else:
+                m = step(state, raw, gen)
+            m1 = cuda_mark()
+        m1.synchronize()
+        out["step_ms"].append(m0.elapsed_time(m1))
+        out["counts"].append(counts_since(before))
+        out["collectives"].append(comm.split())
+        out["loss"].append(float(m["loss"]))
+        out["states"].append(dp_host_state(state.model))
+    out["collectives_own"] = replay_collectives(comm.calls, mesh)
+    hold_calls(label, sites, calls)
+    del state, calls
+    torch.cuda.empty_cache()
+    return out
+
+
+def dp_rank_trainer(mesh, spec: dict) -> dict:
+    """A Trainer on the two ranks (``n_devices`` 2) for DP_TRAINER_EPOCHS
+    epochs, then one resumed from the first epoch's checkpoint running the
+    rest: each run's losses, launches and final state, the checkpoints
+    this rank saved."""
+    from crfconv_tpu_torch import cuda_build
+    from crfconv_tpu_torch.train.config import S3DISConfig
+    from crfconv_tpu_torch.train.trainer import Trainer
+
+    def make():
+        t = Trainer(S3DISConfig(**spec["cfg"]), seed=SEED,
+                    device=mesh.device, n_devices=mesh.world)
+        t.losses, t.saves, t.val_batches = [], [], 0
+        step, save, ev = t._train_step, t.ckpt.save, t._eval_batch
+
+        def rec_step(state, batch, rng):
+            m = step(state, batch, rng)
+            t.losses.append(float(m["loss"]))
+            return m
+
+        def rec_save(*a, **kw):
+            t.saves.append(kw.get("step"))
+            return save(*a, **kw)
+
+        def rec_eval(*a, **kw):
+            t.val_batches += 1
+            return ev(*a, **kw)
+
+        t._train_step, t.ckpt.save, t._eval_batch = (rec_step, rec_save,
+                                                     rec_eval)
+        return t
+
+    before = cuda_build.launch_counts()
+    t0 = time.perf_counter()
+    live = make()
+    best = live.train()
+    run_s = time.perf_counter() - t0
+    first = os.path.join(live.ckpt.directory,
+                         live.ckpt._load_meta()["checkpoints"][0]["name"])
+    resumed = make()
+    start = resumed.resume(first)
+    resumed.train()
+    return {"losses": live.losses, "saves": live.saves, "best": best,
+            "epoch_len": len(live.train_loader),
+            "val_batches": live.val_batches + resumed.val_batches,
+            "start": start, "resumed": resumed.losses,
+            "resumed_saves": resumed.saves,
+            "counts": counts_since(before), "run_s": run_s,
+            "state": dp_host_state(live.model),
+            "resumed_state": dp_host_state(resumed.model)}
+
+
+def dp_rank(mesh, spec: dict) -> dict:
+    """One rank of phase 34: the flagship's and the exact regime's global
+    steps, then the two-rank Trainer; this rank's failed checks and held
+    calls come back with the results."""
+    global EXACT, CARD
+    from crfconv_tpu_torch import NeighborMode
+
+    EXACT = NeighborMode("exact")
+    CARD = spec["card"]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.reset_peak_memory_stats()
+    out = {"rank": mesh.rank}
+    for key, exact in (("flagship", False), ("exact", True)):
+        out[key] = dp_rank_steps(mesh, spec, exact)
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    if spec.get("trainer"):
+        out["trainer"] = dp_rank_trainer(mesh, spec["trainer"])
+    out["failures"] = list(FAILURES)
+    out["held"] = {k: v for k, v in HELD.items() if v}
+    return out
+
+
+def dp_states_gap(got: dict, ref: dict) -> tuple:
+    """The largest share of the train-step tolerance (parameters rtol 1e-3
+    atol 5e-5, running statistics rtol 1e-3 atol 1e-5) between two states,
+    and the tensor reaching it."""
+    worst, at = 0.0, None
+    for k, r in ref.items():
+        atol = 1e-5 if k.endswith((".mean", ".var")) else 5e-5
+        gap = float(np.max(np.abs(got[k] - r) / (atol + 1e-3 * np.abs(r))))
+        if gap > worst:
+            worst, at = gap, k
+    return worst, at
+
+
+def dp_world1(dev, rng) -> dict:
+    """Phase 34 (a): an nccl group of one; DP_WORLD1_STEPS flagship steps
+    through make_parallel_train_step against today's step on the same
+    batches and generators, state by state, bit for bit."""
+    from crfconv_tpu_torch import cuda_build, make_train_step
+    from crfconv_tpu_torch.parallel import (
+        close_mesh, make_mesh, make_parallel_train_step,
+    )
+
+    mesh = make_mesh(1, backend="nccl", device=dev)
+    try:
+        plain, par = make_train_state(dev), make_train_state(dev)
+        step = make_train_step()
+        pstep = make_parallel_train_step(step, mesh)
+        counts = {k: 0 for k in REPLACES}
+        equal = []
+        for i in range(DP_WORLD1_STEPS):
+            raw = train_batch(rng, dev)
+            a = step(plain, raw, step_generator(dev, i))
+            before = cuda_build.launch_counts()
+            b = pstep(par, raw, step_generator(dev, i))
+            for k, v in counts_since(before).items():
+                counts[k] += v
+            sa, sb = plain.model.state_dict(), par.model.state_dict()
+            equal.append(torch.equal(a["loss"], b["loss"]) and all(
+                torch.equal(sa[k], sb[k]) for k in sa))
+    finally:
+        close_mesh(mesh)
+    torch.cuda.synchronize()
+    record_launches("data-parallel world 1", counts, EXPECTED_PER_STEP,
+                    DP_WORLD1_STEPS, "steps")
+    expect(all(equal), f"data-parallel world 1: states bit-equal to the "
+           f"plain step's after each step: {equal}")
+    print(f"# data-parallel world 1 (nccl): {DP_WORLD1_STEPS} steps "
+          f"bit-equal to the plain step's: {equal}", flush=True)
+    del plain, par
+    torch.cuda.empty_cache()
+    return {"bit_equal": equal}
+
+
+def dp_phase(dev, rng, out_dir: str, results: dict) -> dict:
+    """Phase 34: data-parallel training. (a) an nccl group of one; (b) two
+    gloo ranks sharing the card (nccl refuses two ranks on one device),
+    each on half of B8 x 8192: DP_STEPS flagship steps (dropout 0.5) and
+    (c) DP_STEPS exact-regime steps against the one-process steps on the
+    whole batches (loss rtol 1e-5, states at the train-step tolerances,
+    the ranks bit-equal after every step), exact launch counts a rank a
+    step, every kernel call of a rank's first step held against its plain
+    version; (d) a two-rank Trainer on phase 27's rooms (full-width
+    flagship, B4 x 8192 a rank, 2-view val): DP_TRAINER_EPOCHS epochs of
+    DP_TRAINER_STEPS steps, rank 0 the only checkpoint writer, a run
+    resumed from the first epoch's checkpoint bit-identical. Two ranks on
+    one card measure correctness and the collectives' cost, not scaling."""
+    import tempfile
+
+    from crfconv_tpu_torch import cuda_build
+    from crfconv_tpu_torch.parallel import launch
+    from crfconv_tpu_torch.train.config import S3DISConfig
+    from crfconv_tpu_torch.train.trainer import _build_dataset
+
+    t0 = time.perf_counter()
+    world1 = dp_world1(dev, rng)
+    batches = [{"pos": r.pos.cpu().numpy(), "x": r.x.cpu().numpy(),
+                "y": r.y.cpu().numpy()}
+               for r in (train_batch(rng, dev) for _ in range(DP_STEPS))]
+    refs = {key: dp_one_process(dev, batches, exact)
+            for key, exact in (("flagship", False), ("exact", True))}
+    cuda_build.build()      # the ranks load what is built, build nothing
+    b_rank = B // DP_RANKS
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dp_") as tmp:
+        root = os.path.join(tmp, "s3dis")
+        write_s3dis_rooms(root, np.random.default_rng(SEED + 27))
+        cfg = {"root": root, "sample_num": N, "batch_size": b_rank,
+               "epochs": DP_TRAINER_EPOCHS,
+               "checkpoint_dir": os.path.join(tmp, "ckpt"),
+               "train_samples_per_epoch": DP_TRAINER_STEPS * B,
+               "val_samples_per_epoch": TRAINER_VAL_BATCHES * B}
+        _build_dataset(S3DISConfig(**cfg))   # the caches, written once
+        spec = {"card": CARD, "batches": batches, "trainer": {"cfg": cfg}}
+        t1 = time.perf_counter()
+        ranks = launch(dp_rank, DP_RANKS, [str(dev)] * DP_RANKS, "gloo",
+                       args=(spec,), timeout_s=600)
+        ranks_s = time.perf_counter() - t1
+        written = sorted(os.path.relpath(os.path.join(d, f), tmp)
+                         for d, _, fs in os.walk(os.path.join(tmp, "ckpt"))
+                         for f in fs)
+    for r in ranks:
+        for what in r["failures"]:
+            expect(False, f"rank {r['rank']}: {what}")
+        for name, paths in r["held"].items():
+            HELD[name].update(paths)
+    report = {"world1": world1, "ranks_s": ranks_s}
+    for key, per, sites in (("flagship", EXPECTED_PER_STEP,
+                             dp_sites(False)),
+                            ("exact", only(DP_EXACT_PER_STEP),
+                             dp_sites(True))):
+        path = f"data-parallel {key} ({DP_RANKS} ranks)"
+        ref = refs[key]
+        a, b = (r[key] for r in ranks)
+        summed = {k: sum(c[k] for r in (a, b) for c in r["counts"])
+                  for k in REPLACES}
+        for r in (a, b):
+            for i, c in enumerate(r["counts"]):
+                expect(all(c[k] == per.get(k, 0) for k in per),
+                       f"{path}: a rank's step {i} launched {c}, expected "
+                       f"{per}")
+        record_launches(path, summed, per, DP_RANKS * DP_STEPS, "rank-steps")
+        loss_gap = max(abs(x - y) / abs(y) for x, y in zip(a["loss"],
+                                                            ref["loss"]))
+        expect(a["loss"] == b["loss"] and loss_gap <= 1e-5,
+               f"{path}: losses {a['loss']} / {b['loss']} against the one "
+               f"process's {ref['loss']}")
+        ranks_equal = [all(np.array_equal(sa[k], sb[k]) for k in sa)
+                       for sa, sb in zip(a["states"], b["states"])]
+        expect(all(ranks_equal), f"{path}: the ranks' states bit-equal "
+               f"after each step: {ranks_equal}")
+        gaps = [dp_states_gap(sa, sr) for sa, sr in zip(a["states"],
+                                                        ref["states"])]
+        expect(all(g <= 1.0 for g, _ in gaps), f"{path}: states against "
+               f"the one process's at {gaps} of the tolerance")
+        step_ms = [statistics.median(r["step_ms"]) for r in (a, b)]
+        coll = {}
+        for r in (a, b):
+            for c in r["collectives"]:
+                for what, v in c.items():
+                    t = coll.setdefault(what, {"ms": [], "bytes": 0,
+                                               "calls": 0})
+                    t["ms"].append(v["ms"])
+                    t["bytes"] = v["bytes"]
+                    t["calls"] = v["calls"]
+        # the window of a step's calls holds the wait for the peer rank;
+        # their own cost is the replay's, after a barrier
+        coll = {what: {"window_ms_median": statistics.median(v["ms"]),
+                       "own_ms": [r["collectives_own"][what]["ms"]
+                                  for r in (a, b)],
+                       "bytes": v["bytes"], "calls": v["calls"]}
+                for what, v in coll.items()}
+        report[key] = {"loss": a["loss"], "one_process_loss": ref["loss"],
+                       "loss_rel_gap": loss_gap, "ranks_bit_equal":
+                       ranks_equal, "state_gap_of_tolerance": gaps,
+                       "step_ms": [r["step_ms"] for r in (a, b)],
+                       "step_ms_median": step_ms,
+                       "collectives_a_rank_step": coll}
+        print(f"# {path}: losses {a['loss']} (one process {ref['loss']}, "
+              f"rel gap {loss_gap:.3g}), ranks bit-equal {ranks_equal}, "
+              f"states at {max(g for g, _ in gaps):.3g} of the tolerance; "
+              f"step ms a rank (median of {DP_STEPS}) {step_ms}; a rank's "
+              f"step's all-reduces (window ms median over the steps and "
+              f"ranks, the peer's wait included; own ms of each rank, "
+              f"replayed after a barrier; bytes; calls): "
+              + ", ".join(f"{w} {v['window_ms_median']:.3f} ms, own "
+                          f"{v['own_ms']} ms, {v['bytes']} B, {v['calls']}"
+                          for w, v in coll.items())
+              + f" [{CARD}; two ranks share one card: correctness and the "
+              f"collectives' cost, not scaling]", flush=True)
+    report["peak_gib"] = [r["peak_gib"] for r in ranks]
+
+    t0r, t1r = (r["trainer"] for r in ranks)
+    n_steps = DP_TRAINER_EPOCHS * DP_TRAINER_STEPS + DP_TRAINER_STEPS
+    for r in (t0r, t1r):
+        expect(r["epoch_len"] == DP_TRAINER_STEPS and
+               len(r["losses"]) == DP_TRAINER_EPOCHS * DP_TRAINER_STEPS
+               and all(np.isfinite(r["losses"])),
+               f"data-parallel trainer: epoch of {r['epoch_len']} steps, "
+               f"losses {r['losses']}")
+        expect(r["start"] == 1 and r["resumed"] == r["losses"][
+            DP_TRAINER_STEPS:], f"data-parallel trainer: resumed at epoch "
+               f"{r['start']}, losses {r['resumed']} against "
+               f"{r['losses'][DP_TRAINER_STEPS:]}")
+        expect(all(np.array_equal(r["state"][k], r["resumed_state"][k])
+                   for k in r["state"]),
+               "data-parallel trainer: the resumed run's state is not the "
+               "uninterrupted run's")
+        expected = {k: n_steps * EXPECTED_PER_STEP.get(k, 0)
+                    + r["val_batches"] * TWO_VIEW_PER_EVAL.get(k, 0)
+                    for k in REPLACES}
+        expect(r["counts"] == expected, f"data-parallel trainer: launched "
+               f"{r['counts']}, expected {expected}")
+    expect(t0r["losses"] == t1r["losses"] and all(
+        np.array_equal(t0r["state"][k], t1r["state"][k])
+        for k in t0r["state"]), "data-parallel trainer: the ranks differ")
+    expect(len(t0r["saves"]) == DP_TRAINER_EPOCHS and not t1r["saves"]
+           and len(t0r["resumed_saves"]) == 1 and not t1r["resumed_saves"],
+           f"data-parallel trainer: saves {t0r['saves']} "
+           f"{t0r['resumed_saves']} / {t1r['saves']} {t1r['resumed_saves']}")
+    record_launches("data-parallel trainer (2 ranks)", {
+        k: t0r["counts"][k] + t1r["counts"][k] for k in REPLACES},
+        {k: t0r["counts"][k] + t1r["counts"][k] for k in REPLACES}, 1,
+        "runs")
+    report["trainer"] = {
+        "losses": t0r["losses"], "resumed": t0r["resumed"],
+        "best": t0r["best"], "val_batches_a_rank": t0r["val_batches"],
+        "run_s_a_rank": [t0r["run_s"], t1r["run_s"]],
+        "checkpoint_files": written}
+    print(f"# data-parallel trainer (2 ranks, B{b_rank} x {N} each): "
+          f"losses {t0r['losses']}, resumed {t0r['resumed']}, best mIoU "
+          f"{t0r['best']:.4f}, rank 0 saved {t0r['saves']} "
+          f"{t0r['resumed_saves']}, rank 1 {t1r['saves']}; run "
+          f"{t0r['run_s']:.1f} s; peak GiB a rank {report['peak_gib']}; "
+          f"the ranks took {ranks_s:.1f} s; phase "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return report
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -5044,7 +5571,8 @@ def main() -> int:
                     ("trainer_s3dis", trainer_s3dis_phase),
                     ("trainer_shapenet", trainer_shapenet_phase),
                     ("bf16", bf16_phase), ("parity", parity_phase),
-                    ("utils", utils_phase)):
+                    ("utils", utils_phase),
+                    ("data_parallel", dp_phase)):
         run_path(key, fn)
     # the driver's overhead a step: the Trainer's S3DIS steps against the
     # plain step's in a loop, in turns on the same placed batches,
@@ -5064,7 +5592,8 @@ def main() -> int:
               f"interquartile ranges {'part' if o['resolved'] else 'overlap'}"
               f")", flush=True)
 
-    # launches: the sum over the main paths (flagship serve and train,
+    # launches: the sum over the main paths (the data-parallel paths of
+    # phase 34 among them, summed over the ranks; flagship serve and train,
     # ScanNet serve and train, ScanNet-discrete serve and train, Semantic3D
     # serve, flagship exact serve and train, the 2-view eval,
     # ScanNet-discrete exact serve; ShapeNet serve and train, SemanticKITTI

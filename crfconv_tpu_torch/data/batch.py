@@ -49,3 +49,21 @@ class PointBatch(NamedTuple):
     point_idx: Optional[torch.Tensor] = None  # [B, N] original-cloud ids
     cloud_idx: Optional[torch.Tensor] = None  # [B]
     category: Optional[torch.Tensor] = None   # [B]
+
+
+def batch_size_of(batch) -> int:
+    """The clouds of a RawBatch or PointBatch."""
+    return int(batch.x.shape[0])
+
+
+def slice_batch(batch, i: int, m: int):
+    """Clouds [i, i + m) of a RawBatch or PointBatch (the pyramid's
+    tensors included)."""
+    def cut(v):
+        if v is None:
+            return None
+        if isinstance(v, torch.Tensor):
+            return v[i:i + m]
+        return tuple(ScaleData(*map(cut, s)) for s in v)   # the scales
+
+    return type(batch)(*map(cut, batch))

@@ -2,8 +2,10 @@
 
 Counterpart of ``crfconv_tpu/models/common.py``: ``MLP`` is Linear (bias
 iff no batch norm) -> batch norm -> activation. Parameter and buffer names
-follow the flax tree (``convert.from_flax``). The batch norm has no
-validity mask: that belongs to point-sharded training, not ported yet.
+follow the flax tree (``convert.from_flax``). The batch norm takes an
+optional point-validity mask, and under a data-parallel step
+(``ops/spatial_state.py``) reduces its statistics over every rank's rows;
+dropout then draws its mask at the global batch's shape.
 
 The compute dtype (``set_compute_dtype``, ``compute_dtype_scope``) is the
 dtype of every MLP's product, as flax's ``nn.Dense(dtype=...)`` of the JAX
@@ -23,6 +25,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from crfconv_tpu_torch.ops import spatial_state
 from crfconv_tpu_torch.ops.activation import leaky_relu
 
 BN_MOMENTUM = 0.9   # running stats: ra = 0.9 * ra + 0.1 * batch, as flax
@@ -66,15 +69,34 @@ def leaky_relu001(x: torch.Tensor) -> torch.Tensor:
 def dropout(x: torch.Tensor, rate: float,
             generator: Optional[torch.Generator]) -> torch.Tensor:
     """Inverted dropout drawn from ``generator`` (on x's device): keeps each
-    element with probability 1 - rate, scaled by 1 / (1 - rate)."""
+    element with probability 1 - rate, scaled by 1 / (1 - rate).
+
+    Under a data-parallel step of ``world`` ranks the mask is drawn at the
+    global batch's shape ``[world * B, ...]`` and rank r keeps rows
+    ``[r * B, (r + 1) * B)``, as the JAX package's global program draws it:
+    every rank's generator, seeded alike, stays in step with a one-process
+    run on the whole batch."""
     if rate == 0.0:
         return x
     if generator is None:
         raise ValueError("dropout in training needs an explicit generator")
     if rate >= 1.0:
         return torch.zeros_like(x)
-    keep = torch.rand(x.shape, generator=generator, device=x.device) >= rate
-    return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
+    mesh = spatial_state.data_mesh()
+    world, rank = (1, 0) if mesh is None else (mesh.world, mesh.rank)
+    b = x.shape[0]
+    keep = torch.rand((world * b,) + tuple(x.shape[1:]), generator=generator,
+                      device=x.device)[rank * b:(rank + 1) * b]
+    return torch.where(keep >= rate, x / (1.0 - rate), torch.zeros_like(x))
+
+
+def _all_reduce(t: torch.Tensor, mesh) -> torch.Tensor:
+    """The sum of ``t`` over the mesh's ranks; its backward sums the
+    gradient over the ranks (each rank's loss reaches every rank's
+    statistics)."""
+    from torch.distributed.nn.functional import all_reduce
+
+    return all_reduce(t, group=mesh.group)
 
 
 class MaskedBatchNorm(nn.Module):
@@ -85,6 +107,15 @@ class MaskedBatchNorm(nn.Module):
     float32) and updates the running statistics the flax way,
     ``ra = BN_MOMENTUM * ra + (1 - BN_MOMENTUM) * batch``, with the unbiased
     variance; eval mode normalises with the running statistics.
+
+    ``mask`` ([...], bool, the leading axes of x) keeps the statistics to
+    the valid rows. Under a data-parallel step of more than one rank the
+    statistics are those of every rank's rows, in JAX's two-pass form: the
+    count and the sum are all-reduced, then the sum of squared deviations
+    from the global mean (the one-pass sum of squares would cancel in
+    float32). The all-reduces are differentiable, and the running
+    statistics, updated from the global ones, stay equal on every rank.
+    With no mask and no such step the statistics are today's local ones.
     """
 
     def __init__(self, features: int, epsilon: float = 1e-5, device=None):
@@ -95,22 +126,56 @@ class MaskedBatchNorm(nn.Module):
         self.register_buffer("mean", torch.zeros(features, device=device))
         self.register_buffer("var", torch.ones(features, device=device))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         if not self.training:
             y = (x - self.mean) * torch.rsqrt(self.var + self.epsilon)
             return (y * self.scale + self.bias).to(x.dtype)
         xf = x.to(torch.promote_types(x.dtype, torch.float32))
         dims = tuple(range(x.dim() - 1))
-        mean = xf.mean(dim=dims)
-        var = (xf - mean).square().mean(dim=dims)
-        with torch.no_grad():
+        mesh = spatial_state.data_mesh()
+        if mesh is not None and mesh.world == 1:
+            mesh = None        # one rank's statistics are the global ones
+        if mask is None and mesh is None:
+            mean = xf.mean(dim=dims)
+            var = (xf - mean).square().mean(dim=dims)
             count = float(x.numel() // x.shape[-1])
-            unbiased = var * count / max(count - 1.0, 1.0)
+        else:
+            mean, var, count = self._global_stats(xf, dims, mask, mesh)
+        with torch.no_grad():
+            if isinstance(count, float):
+                unbiased = var * count / max(count - 1.0, 1.0)
+            else:
+                unbiased = var * count / (count - 1.0).clamp_min(1.0)
             m = BN_MOMENTUM
             self.mean.copy_(m * self.mean + (1 - m) * mean)
             self.var.copy_(m * self.var + (1 - m) * unbiased)
         y = (x - mean) * torch.rsqrt(var + self.epsilon)
         return (y * self.scale + self.bias).to(x.dtype)
+
+    @staticmethod
+    def _global_stats(xf, dims, mask, mesh):
+        """(mean, biased variance, count) over the rows that ``mask`` keeps
+        (all where it is None), of every rank of ``mesh`` (this rank's where
+        it is None): JAX's masked two-pass statistics."""
+        if mask is None:
+            m = None
+            count = xf.new_tensor(float(xf.numel() // xf.shape[-1]))
+            s1 = xf.sum(dim=dims)
+        else:
+            m = mask.to(xf.dtype)[..., None]
+            count = m.sum()
+            s1 = (xf * m).sum(dim=dims)
+        if mesh is not None:
+            both = _all_reduce(torch.cat([s1, count[None]]), mesh)
+            s1, count = both[:-1], both[-1].detach()
+        count = count.clamp_min(1.0)
+        mean = s1 / count
+        d2 = (xf - mean).square()
+        s2 = (d2 if m is None else d2 * m).sum(dim=dims)
+        if mesh is not None:
+            s2 = _all_reduce(s2, mesh)
+        return mean, s2 / count, count
 
 
 class MLP(nn.Module):
@@ -153,14 +218,16 @@ class MLP(nn.Module):
                 r = torch.rand(p.shape, generator=generator)
                 p.copy_((2 * r - 1) * bound)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``mask``: the rows' validity for the batch norm's statistics."""
         dtype = _COMPUTE["dtype"] if self.scoped else None
         if dtype is None:
             dtype = torch.promote_types(x.dtype, self.weight.dtype)
         x = F.linear(x.to(dtype), self.weight.to(dtype),
                      None if self.bias is None else self.bias.to(dtype))
         if self.bn is not None:
-            x = self.bn(x)
+            x = self.bn(x, mask)
         if self.activation is not None:
             x = self.activation(x)
         return x

@@ -87,8 +87,10 @@ class ContinuousCRFConv(nn.Module):
 class GuideCRFConv(nn.Module):
     """The small family's continuous CRF on kNN indices, with neighbours
     farther than ``radius`` masked out of the similarity softmax (the
-    reference's radius graph). The point-validity mask of the JAX block
-    (padded clouds) is not ported."""
+    reference's radius graph). An optional point-validity mask ([B, N],
+    bool: padded clouds' padding False) keeps the heads' batch statistics
+    to the valid points and masks invalid neighbours out of the softmax,
+    as the JAX block does."""
 
     def __init__(
         self, unary_features: int, pairwise_features: int,
@@ -109,13 +111,18 @@ class GuideCRFConv(nn.Module):
         pos: torch.Tensor,           # [B, N, 3]
         neighbor_idx: torch.Tensor,  # [B, N, K] self-inclusive kNN
         mode: NeighborMode,
+        mask: Optional[torch.Tensor] = None,  # [B, N] point validity
     ) -> torch.Tensor:
         nidx = remove_self_loop(neighbor_idx)
-        xh = self.unary(x)
-        yh = self.pairwise(y)
+        xh = self.unary(x, mask)
+        yh = self.pairwise(y, mask)
         npos = gather_neighbors(pos, nidx, mode)
         d2 = (pos[:, :, None, :] - npos).square().sum(dim=-1)
         nmask = d2 <= self.radius * self.radius
+        if mask is not None:
+            valid_n = gather_neighbors(mask.to(pos.dtype)[..., None], nidx,
+                                       mode)[..., 0] > 0.5
+            nmask = nmask & valid_n
         s = gaussian_similarity(yh, nidx, mode, mask=nmask)
         return leaky_relu001(
             crf_mean_field(xh, s, nidx, self.c, self.steps, mode)

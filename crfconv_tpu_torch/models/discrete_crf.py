@@ -7,11 +7,14 @@ with e_ik = f_i F_k; neighbours farther than ``RADIUS`` are masked, and the
 mean field q <- softmax(-u - (sum_j w_ij q_j) C) runs from q = p with
 u = -log p and the label compatibility C (the identity at first). The
 edge weights are plain PyTorch, as the JAX package computes them in XLA;
-the loop is ``ops/crf.py::discrete_crf_update``. Parameter names follow the
-flax tree (``F``, ``W``, ``C``; ``convert.from_flax``).
+the loop is ``ops/crf.py::discrete_crf_update``. An optional point-validity
+mask ([B, N], bool) drops the edges from and to invalid points. Parameter
+names follow the flax tree (``F``, ``W``, ``C``; ``convert.from_flax``).
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn as nn
@@ -55,6 +58,7 @@ class DiscreteCRFConv(nn.Module):
         f: torch.Tensor,               # [B, N, D] raw guidance features
         neighbor_idx: torch.Tensor,    # [B, N, K] self-inclusive kNN
         mode: NeighborMode,
+        mask: Optional[torch.Tensor] = None,   # [B, N] point validity
     ) -> torch.Tensor:
         nidx = remove_self_loop(neighbor_idx)
         u = -torch.log(torch.clamp(p, min=1e-12))
@@ -69,7 +73,11 @@ class DiscreteCRFConv(nn.Module):
         w = (w @ self.W)[..., 0]                              # [B, N, Kn]
         npos = gather_neighbors(pos, nidx, mode)
         d2 = (pos[:, :, None, :] - npos).square().sum(dim=-1)
+        nmask = d2 <= RADIUS * RADIUS
+        if mask is not None:
+            valid_n = gather_neighbors(mask.to(pos.dtype)[..., None], nidx,
+                                       mode)[..., 0] != 0
+            nmask = nmask & valid_n & mask[:, :, None]
         return discrete_crf_update(
-            p, u, w, nidx, self.C, self.steps, mode,
-            mask=d2 <= RADIUS * RADIUS,
+            p, u, w, nidx, self.C, self.steps, mode, mask=nmask,
         )

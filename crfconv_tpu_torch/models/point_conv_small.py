@@ -32,7 +32,9 @@ class DSPointConv(nn.Module):
     """Depthwise-separable point convolution: an MLP on the relative
     positions gives depthwise weights, the messages w * h_j are summed over
     the K neighbours, pointwise MLPs before and after, and a residual that
-    is max-pooled over the neighbourhood in the strided case."""
+    is max-pooled over the neighbourhood in the strided case. An optional
+    point-validity mask keeps the pointwise MLPs' batch statistics to the
+    valid rows, as the JAX block does."""
 
     def __init__(self, in_features: int, features: int, device=None):
         super().__init__()
@@ -54,19 +56,20 @@ class DSPointConv(nn.Module):
         neighbor_idx: torch.Tensor,     # [B, M, K] self-inclusive kNN
         mode: NeighborMode,
         sub_pos: Optional[torch.Tensor] = None,   # [B, M, 3] if strided
+        mask: Optional[torch.Tensor] = None,      # [B, N] point validity
     ) -> torch.Tensor:
-        h = self.mlp2(x)
+        h = self.mlp2(x, mask)
         # one gather of [pos, h] (+ x for the strided residual pool)
         parts = [pos, h] if sub_pos is None else [pos, h, x]
         g = gather_neighbors(torch.cat(parts, dim=-1), neighbor_idx, mode)
         hn = g[..., 3 : 3 + self.hidden]
         residual = x if sub_pos is None else g[..., 3 + self.hidden:].amax(2)
         if self.mlp4 is not None:
-            residual = self.mlp4(residual)
+            residual = self.mlp4(residual, mask)
         center = pos if sub_pos is None else sub_pos
         rel = center[:, :, None, :] - g[..., :3]
         w = self.mlp1_1(self.mlp1_0(rel))
-        h = self.mlp3((w * hn).sum(dim=2))
+        h = self.mlp3((w * hn).sum(dim=2), mask)
         return leaky_relu001(h + residual)
 
 

@@ -71,6 +71,20 @@ def upsample_nearest(
     return gather_neighbors(x, up_idx, mode)[:, :, 0]
 
 
+def max_pool_neighbors(
+    x: torch.Tensor, idx: torch.Tensor, mode: NeighborMode,
+    mask: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Strided max-pool: x [B, N, F], idx [B, S, K] -> [B, S, F], the max
+    over each output point's K neighbours; ``mask`` [B, S, K] (bool) drops
+    the invalid slots (a fully masked row gives the dtype's lowest
+    value)."""
+    n = gather_neighbors(x, idx, mode)                   # [B, S, K, F]
+    if mask is not None:
+        n = torch.where(mask[..., None], n, torch.finfo(x.dtype).min)
+    return n.amax(dim=2)
+
+
 def masked_softmax(
     logits: torch.Tensor, mask: Optional[torch.Tensor] = None, dim: int = -1
 ) -> torch.Tensor:

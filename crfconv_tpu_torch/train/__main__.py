@@ -7,12 +7,20 @@ Counterpart of the JAX package's CLI (``crfconv_tpu/train/__main__.py``),
 with its flags; every config field can be overridden with ``--set
 key=value`` (a tuple field as comma-separated values). ``--device`` names
 the device (default ``cuda``).
+
+``--n-devices N`` trains data-parallel on N ranks of ``--batch-size``
+each: under ``torchrun`` (its environment set) this process is one rank
+and joins the group; otherwise N ranks are spawned on ``cuda:0`` ..
+``cuda:N-1`` (raising where fewer cards are present), or on the CPU with
+``--device cpu``. ``--backend`` names the process group's backend (default
+``nccl`` on cards, ``gloo`` on the CPU).
 """
 
 from __future__ import annotations
 
 import argparse
 import logging
+import os
 
 from crfconv_tpu_torch.train.config import CONFIGS
 from crfconv_tpu_torch.train.trainer import Trainer
@@ -45,7 +53,10 @@ def parse(argv=None):
     p.add_argument("--epochs", type=int, default=None)
     p.add_argument("--batch-size", type=int, default=None)
     p.add_argument("--n-devices", type=int, default=None,
-                   help="data-parallel device count (only 1 is ported)")
+                   help="data-parallel ranks, one process and device each")
+    p.add_argument("--backend", default=None, choices=["nccl", "gloo"],
+                   help="process group backend (default: nccl on cards, "
+                   "gloo on the CPU)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default="cuda",
                    help="torch device of the run (default: cuda)")
@@ -72,16 +83,53 @@ def parse(argv=None):
     return cfg, args
 
 
-def main(argv=None):
-    """Run the command line ``argv``; returns the trainer's result (the
-    best val mIoU in train mode, the vote test's scores in test mode)."""
-    cfg, args = parse(argv)
-    init_logger(args.log_file, level=logging.INFO)
-    trainer = Trainer(cfg, seed=args.seed, device=args.device,
+def rank_devices(device: str, n: int) -> list:
+    """The devices of ``n`` spawned ranks: ``cuda:0`` .. ``cuda:n-1`` for
+    a card (raising where fewer are present), else ``device`` n times."""
+    import torch
+
+    if torch.device(device).type != "cuda":
+        return [device] * n
+    have = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if have < n:
+        raise RuntimeError(f"--n-devices {n} needs {n} CUDA devices, this "
+                           f"machine has {have}")
+    return [f"cuda:{r}" for r in range(n)]
+
+
+def _run(cfg, args, device, rank: int = 0):
+    init_logger(args.log_file if rank == 0 else None, level=logging.INFO)
+    trainer = Trainer(cfg, seed=args.seed, device=device,
                       n_devices=args.n_devices)
     result = trainer()
     logging.getLogger(LOGGER).info("done: %s", result)
     return result
+
+
+def _rank_main(mesh, argv):
+    """One spawned rank of ``--n-devices``."""
+    cfg, args = parse(argv)
+    return _run(cfg, args, mesh.device, mesh.rank)
+
+
+def main(argv=None):
+    """Run the command line ``argv``; returns the trainer's result (the
+    best val mIoU in train mode, the vote test's scores in test mode; rank
+    0's where ranks were spawned)."""
+    import torch.distributed as dist
+
+    from crfconv_tpu_torch.parallel import launch, make_mesh
+
+    cfg, args = parse(argv)
+    n = args.n_devices
+    if n is None or n <= 1 or dist.is_initialized():
+        return _run(cfg, args, args.device)
+    if "WORLD_SIZE" in os.environ and "RANK" in os.environ:   # torchrun
+        mesh = make_mesh(n, backend=args.backend,
+                         device="cpu" if args.device == "cpu" else None)
+        return _run(cfg, args, mesh.device, mesh.rank)
+    return launch(_rank_main, n, rank_devices(args.device, n), args.backend,
+                  args=(argv,))[0]
 
 
 if __name__ == "__main__":

@@ -12,6 +12,14 @@ pyramid on the batch's device; otherwise it takes a :class:`PointBatch`
 whose pyramid is built (the exact regime's by
 ``data/pipeline.py::build_pyramid_device``), and the caller names the
 gather regime that pyramid was built for.
+
+Under a data-parallel context (``parallel.data_parallel``, as
+``make_parallel_train_step`` enters it) both steps run their global form:
+the train step's loss is this rank's numerator over the denominator summed
+over the ranks, its gradients are summed over the ranks in one flat bucket
+between the backward and the optimizer's step, and both steps report the
+loss and the confusion matrix of the global batch. With no context a step
+is the one-process step.
 """
 
 from __future__ import annotations
@@ -22,10 +30,16 @@ from typing import Optional, Sequence
 import torch
 
 from crfconv_tpu_torch.data.batch import PointBatch, RawBatch
+from crfconv_tpu_torch.ops import spatial_state
 from crfconv_tpu_torch.ops.morton import random_rotation, view_rotation
 from crfconv_tpu_torch.ops.neighbors import NeighborMode
 from crfconv_tpu_torch.ops.windowed import build_pyramid_windowed
-from crfconv_tpu_torch.train.losses import segmentation_loss
+from crfconv_tpu_torch.parallel.sharding import (
+    all_reduce_gradients, all_reduce_sum,
+)
+from crfconv_tpu_torch.train.losses import (
+    segmentation_loss, segmentation_loss_parts,
+)
 from crfconv_tpu_torch.train.metrics import confusion_matrix_device
 
 # The training regime of the reference bench (bench.py::measure_train):
@@ -196,9 +210,20 @@ def make_train_step(
                                          curve_jitter=curve_jitter)
         labels = batch.y - label_offset
         outputs = model(batch, mode, dropout_generator=generator)
-        loss = segmentation_loss(outputs, labels, class_weights, ignore_index)
+        mesh = spatial_state.data_mesh()
+        if mesh is None:
+            loss = segmentation_loss(outputs, labels, class_weights,
+                                     ignore_index)
+        else:
+            # this rank's part of the global loss: the ranks' parts sum to
+            # it, and so do their gradients
+            num, den = segmentation_loss_parts(outputs, labels,
+                                               class_weights, ignore_index)
+            loss = num / all_reduce_sum(den, mesh).clamp_min(1e-12)
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        if mesh is not None:
+            all_reduce_gradients(model.parameters(), mesh)
         state.optimizer.step()
         state.scheduler.step()
         state.step += 1
@@ -206,7 +231,11 @@ def make_train_step(
         confusion = confusion_matrix_device(
             labels, primary.argmax(dim=-1), primary.shape[-1], ignore_index
         )
-        return {"loss": loss.detach(), "confusion": confusion}
+        loss = loss.detach()
+        if mesh is not None:
+            loss = all_reduce_sum(loss, mesh)
+            confusion = all_reduce_sum(confusion, mesh)
+        return {"loss": loss, "confusion": confusion}
 
     return train_step
 
@@ -239,16 +268,27 @@ def make_eval_step(
         labels = batch.y - label_offset
         outputs = state.model(batch, mode)
         primary = _head(outputs, -1)
-        loss = segmentation_loss(outputs, labels, class_weights, ignore_index)
+        mesh = spatial_state.data_mesh()
+        if mesh is None:
+            loss = segmentation_loss(outputs, labels, class_weights,
+                                     ignore_index)
+        else:
+            num, den = segmentation_loss_parts(outputs, labels,
+                                               class_weights, ignore_index)
+            parts = all_reduce_sum(torch.stack([num, den]), mesh)
+            loss = parts[0] / parts[1].clamp_min(1e-12)
         return loss, primary
 
     def metrics(loss, probs, labels, point_idx, raw_labels) -> dict:
         preds = probs.argmax(dim=-1)
+        confusion = confusion_matrix_device(labels, preds, probs.shape[-1],
+                                            ignore_index)
+        mesh = spatial_state.data_mesh()
+        if mesh is not None:
+            confusion = all_reduce_sum(confusion, mesh)
         return {
             "loss": loss,
-            "confusion": confusion_matrix_device(
-                labels, preds, probs.shape[-1], ignore_index
-            ),
+            "confusion": confusion,
             "probs": probs,
             "preds": preds,
             "point_idx": point_idx,

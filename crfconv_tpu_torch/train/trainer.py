@@ -1,7 +1,7 @@
 """Experiment driver: train, validate, and the vote-based test.
 
 Counterpart of ``crfconv_tpu/train/trainer.py`` (reference trainval.py:20-343)
-on one device:
+on one device, or data-parallel over the ranks of a process group:
 
   * epochs of train steps fed by ``MultiscaleLoader`` (raw batches whose
     pyramid the step builds on the device in the windowed regime, host
@@ -17,12 +17,25 @@ on one device:
     sub -> full projection (``test``, ``test_labeled``), the ShapeNet
     part-IoU eval (``eval_partseg``).
 
+``n_devices > 1`` trains data-parallel, one rank a process (launched by
+``parallel.launch`` or ``torchrun``, the group initialised by
+``parallel.make_mesh`` or joined here): rank r loads shard r of the data
+and ``cfg.batch_size`` is a rank's batch, as under the JAX package's
+``process_count > 1``; the steps run their global form
+(``parallel/sharding.py``); the val and vote passes gather every rank's
+probabilities, so every rank holds the same vote accumulators and takes
+the same decisions; rank 0 writes the checkpoints, whose sidecar keeps
+every rank's loader state.
+
 Departures from the JAX package: the neighbour regime is passed to the
 steps as a :class:`NeighborMode` (there is no process-wide regime); one
 ``torch.Generator`` on the device stands for the trainer's PRNG key (its
 state is in the sidecar); the compute dtype is scoped to the trainer's own
-calls; data-parallel (``n_devices > 1``) and point-sharded
-(``cfg.spatial_mesh``) training are not ported and raise.
+calls; the JAX package's single-process ``n_devices=N`` splits one batch
+of ``batch_size`` over N devices, while here each of the N ranks loads
+``batch_size``; a data-parallel vote pass stops once every rank's sampler
+has covered the clouds (the smallest of the ranks' minimum possibilities);
+point-sharded training (``cfg.spatial_mesh``) is not ported and raises.
 """
 
 from __future__ import annotations
@@ -38,13 +51,14 @@ import numpy as np
 import torch
 
 from crfconv_tpu_torch.data import transforms as T
-from crfconv_tpu_torch.data.batch import ScaleData
+from crfconv_tpu_torch.data.batch import slice_batch
 from crfconv_tpu_torch.data.loader import (
     MultiscaleLoader, loader_load_state_dict, loader_state_dict,
 )
 from crfconv_tpu_torch.models import get_model
 from crfconv_tpu_torch.models.common import compute_dtype_scope
 from crfconv_tpu_torch.ops.neighbors import NeighborMode
+from crfconv_tpu_torch.parallel import sharding
 from crfconv_tpu_torch.train.checkpoint import CheckpointManager
 from crfconv_tpu_torch.train.config import Config
 from crfconv_tpu_torch.train.metrics import RunningScore, RunningScoreShapeNet
@@ -124,26 +138,60 @@ def _build_dataset(cfg: Config):
     )
 
 
-def _slice(batch, i: int, m: int):
-    """Clouds [i, i + m) of a RawBatch or PointBatch (the pyramid's
-    tensors included)."""
-    def cut(v):
-        if v is None:
-            return None
-        if isinstance(v, torch.Tensor):
-            return v[i:i + m]
-        return tuple(ScaleData(*map(cut, s)) for s in v)   # the scales
-
-    return type(batch)(*map(cut, batch))
-
-
-def _fetch(t: Optional[torch.Tensor]) -> Optional[np.ndarray]:
-    """A device tensor on the host as numpy (bfloat16 as float32)."""
+def _fetch(t: Optional[torch.Tensor], mesh=None) -> Optional[np.ndarray]:
+    """A device tensor on the host as numpy (bfloat16 as float32); under a
+    data-parallel ``mesh`` every rank's rows, in rank order."""
     if t is None:
         return None
+    if mesh is not None:
+        t = sharding.all_gather_cat(t, mesh)
     if t.is_floating_point() and t.dtype != torch.float64:
         t = t.float()
     return t.cpu().numpy()
+
+
+def _join_mesh(n_devices: int, device: torch.device):
+    """The data-parallel mesh of a Trainer on ``n_devices`` ranks: the
+    initialised process group's, which must have that many ranks."""
+    import torch.distributed as dist
+
+    if not dist.is_initialized():
+        raise RuntimeError(
+            f"n_devices={n_devices} trains on that many processes: start "
+            "them with crfconv_tpu_torch.parallel.launch or torchrun and "
+            "initialise the group (parallel.make_mesh) first")
+    if dist.get_world_size() != n_devices:
+        raise RuntimeError(f"n_devices={n_devices}, but the process group "
+                           f"has {dist.get_world_size()} ranks")
+    # a device without an index is the rank's own card
+    return sharding.make_mesh(
+        n_devices, device=None if device.type == "cuda"
+        and device.index is None else device)
+
+
+def _batches(loader, mesh):
+    """The loader's batches; under a data-parallel ``mesh`` the first one's
+    shapes are checked equal on every rank (a loader draws batches of one
+    shape, and a step on unequal shards would hang or differ)."""
+    for i, batch in enumerate(loader):
+        if i == 0 and mesh is not None:
+            sharding.make_global_batch(batch, mesh)
+        yield batch
+
+
+class _GlobalCoverage:
+    """A trainer's val set whose ``min_possibility`` is the smallest over
+    the ranks' samplers, for ``labeled_vote_eval``'s stopping rule."""
+
+    def __init__(self, trainer):
+        self._trainer = trainer
+
+    def __getattr__(self, name):
+        return getattr(self._trainer.val_set, name)
+
+    @property
+    def min_possibility(self) -> float:
+        return self._trainer._min_possibility()
 
 
 class Trainer:
@@ -155,10 +203,6 @@ class Trainer:
         device="cuda",
         n_devices: Optional[int] = None,
     ):
-        if n_devices is not None and n_devices > 1:
-            raise NotImplementedError(
-                "data-parallel training (n_devices > 1) is not ported to the "
-                "PyTorch package yet (ROADMAP.md, Queue 1, item 6)")
         if getattr(cfg, "spatial_mesh", None):
             raise NotImplementedError(
                 "point-sharded training (cfg.spatial_mesh) is not ported to "
@@ -169,6 +213,10 @@ class Trainer:
                              f"{cfg.compute_dtype!r}")
         self.cfg = cfg
         self.device = torch.device(device)
+        self.mesh = None
+        if n_devices is not None and n_devices > 1:
+            self.mesh = _join_mesh(n_devices, self.device)
+            self.device = self.mesh.device
         self.dataset = dataset if dataset is not None else _build_dataset(cfg)
 
         has_rgb = cfg.dataset in ("S3DIS", "Semantic3D")
@@ -189,6 +237,9 @@ class Trainer:
             emit="raw" if windowed else "pyramid",
             device=self.device,
         )
+        if self.mesh is not None:
+            loader_kw.update(num_shards=self.mesh.world,
+                             shard_index=self.mesh.rank)
         self.train_loader = MultiscaleLoader(
             train_set, cfg.batch_size, transform=train_tf, seed=seed,
             **loader_kw,
@@ -233,6 +284,8 @@ class Trainer:
             weight_decay=cfg.weight_decay, gamma=cfg.gamma,
             steps_per_epoch=max(len(self.train_loader), 1),
         )
+        if self.mesh is not None:
+            sharding.replicate(self.state, self.mesh)
         self.mode = (
             NeighborMode("windowed", knn_exact=cfg.windowed_knn_exact)
             if windowed else NeighborMode("exact")
@@ -240,16 +293,16 @@ class Trainer:
         self._compute_dtype = COMPUTE_DTYPES[cfg.compute_dtype]
         cw = cfg.class_weights
         cw = None if cw is None else torch.as_tensor(cw, device=self.device)
-        self._train_step = self._scoped(make_train_step(
+        self._train_step = self._scoped(self._parallel(make_train_step(
             self.mode, cw, cfg.ignore_index, windowed=windowed,
             label_offset=cfg.label_offset,
             curve_jitter=windowed and getattr(cfg, "curve_jitter", False),
-        ))
-        self._eval_step = self._scoped(make_eval_step(
+        )))
+        self._eval_step = self._scoped(self._parallel(make_eval_step(
             self.mode, cw, cfg.ignore_index, label_offset=cfg.label_offset,
             windowed=windowed,
             eval_views=getattr(cfg, "eval_views", 1) if windowed else 1,
-        ))
+        )))
 
         self.metrics = RunningScore(cfg.num_classes, cfg.ignore_index)
         self.ckpt = CheckpointManager(
@@ -276,6 +329,43 @@ class Trainer:
 
         return wrapped
 
+    def _parallel(self, step):
+        """``step`` in its data-parallel form where the trainer has a
+        mesh."""
+        if self.mesh is None:
+            return step
+        return sharding.make_parallel_train_step(step, self.mesh)
+
+    def _global_flag(self, flag: bool) -> bool:
+        """``flag`` raised on any rank (each rank's own, alone)."""
+        if self.mesh is None:
+            return flag
+        t = torch.tensor([int(flag)], device=sharding.comm_device(
+            self.mesh))
+        return bool(sharding.all_reduce_max(t, self.mesh)[0])
+
+    def _min_possibility(self) -> float:
+        """The val sampler's least possibility: the smallest over the
+        ranks' samplers where the trainer has a mesh."""
+        m = float(np.min(self.val_set.min_possibility))
+        if self.mesh is None:
+            return m
+        t = torch.tensor([-m], dtype=torch.float64,
+                         device=sharding.comm_device(self.mesh))
+        return -float(sharding.all_reduce_max(t, self.mesh)[0])
+
+    def _save(self, epoch: int, metric: Optional[float] = None) -> None:
+        """A checkpoint of the state with the sidecar of ``epoch``: written
+        by rank 0 alone, the other ranks waiting until it is on disk."""
+        aux = self._aux_state(epoch)
+        if self.mesh is None or self.mesh.rank == 0:
+            self.ckpt.save(self.state, step=self.state.step, metric=metric,
+                           aux=aux)
+        if self.mesh is not None:
+            import torch.distributed as dist
+
+            dist.barrier(group=self.mesh.group)
+
     def _vote_generator(self, vote_pass: int) -> torch.Generator:
         return torch.Generator(device=self.device).manual_seed(
             (VOTE_SEED << 32) + vote_pass)
@@ -296,7 +386,7 @@ class Trainer:
         if nb % m:
             raise ValueError("batch_size must be divisible by "
                              "eval_microbatch")
-        outs = [run(_slice(batch, i, m)) for i in range(0, nb, m)]
+        outs = [run(slice_batch(batch, i, m)) for i in range(0, nb, m)]
         merged = {}
         for k in outs[0]:
             vals = [o[k] for o in outs]
@@ -321,10 +411,12 @@ class Trainer:
         self.metrics.reset()
         losses = []
         confusion = None
-        for step_i, batch in enumerate(self.train_loader):
-            # step-granular preemption: an epoch can be thousands of samples
+        batches = _batches(self.train_loader, self.mesh)
+        for step_i, batch in enumerate(batches):
+            # step-granular preemption: an epoch can be thousands of samples;
+            # under a mesh every rank stops at the same step
             if (preempted is not None and step_i % 10 == 0
-                    and preempted["flag"]):
+                    and self._global_flag(preempted["flag"])):
                 preempted["mid_epoch"] = True
                 break
             m = self._train_step(self.state, batch, self.rng)
@@ -339,7 +431,7 @@ class Trainer:
         self.metrics.reset()
         losses = []
         confusion = None
-        for batch in self.val_loader:
+        for batch in _batches(self.val_loader, self.mesh):
             m = self._eval_batch(batch)
             losses.append(m["loss"])
             confusion = (m["confusion"] if confusion is None
@@ -372,15 +464,35 @@ class Trainer:
     # generators; without it a resumed run replays another crop schedule
     # ------------------------------------------------------------------
     def _aux_state(self, epoch: int) -> dict:
+        """The sidecar of a checkpoint; under a mesh its ``train_loader``
+        is the list of every rank's loader state (a collective: every rank
+        calls it)."""
+        loader = loader_state_dict(self.train_loader)
+        if self.mesh is not None:
+            import torch.distributed as dist
+
+            states = [None] * self.mesh.world
+            dist.all_gather_object(states, loader, group=self.mesh.group)
+            loader = states
         return {
             "epoch": epoch,
             "trainer_rng": self.rng.get_state().numpy(),
-            "train_loader": loader_state_dict(self.train_loader),
+            "train_loader": loader,
         }
 
     def _load_aux(self, aux: dict) -> int:
         self.rng.set_state(torch.from_numpy(np.asarray(aux["trainer_rng"])))
-        loader_load_state_dict(self.train_loader, aux["train_loader"])
+        loader = aux["train_loader"]
+        world = 1 if self.mesh is None else self.mesh.world
+        if isinstance(loader, list) != (world > 1) or (
+                world > 1 and len(loader) != world):
+            raise ValueError(
+                f"the checkpoint's loader state is of "
+                f"{len(loader) if isinstance(loader, list) else 1} ranks, "
+                f"this run has {world}")
+        if world > 1:
+            loader = loader[self.mesh.rank]
+        loader_load_state_dict(self.train_loader, loader)
         return int(aux["epoch"])
 
     def resume(self, path: Optional[str] = None) -> int:
@@ -397,17 +509,15 @@ class Trainer:
         best_iou = 0.0
         since_best = 0
         for epoch in range(getattr(self, "_start_epoch", 0), self.cfg.epochs):
-            if preempted["flag"]:
-                self.ckpt.save(self.state, step=self.state.step,
-                               aux=self._aux_state(epoch))
+            if self._global_flag(preempted["flag"]):
+                self._save(epoch)
                 log.warning("preempted at epoch %d; checkpoint saved", epoch)
                 break
             t1 = time.time()
             tr = self.train_one_epoch(epoch, preempted)
             t2 = time.time()
             if preempted.get("mid_epoch"):
-                self.ckpt.save(self.state, step=self.state.step,
-                               aux=self._aux_state(epoch))
+                self._save(epoch)
                 log.warning("preempted mid-epoch %d; checkpoint saved", epoch)
                 break
             scores, _ = self.metrics.get_scores()
@@ -430,8 +540,7 @@ class Trainer:
                     since_best = 0
                 else:
                     since_best += 1
-                self.ckpt.save(self.state, step=self.state.step, metric=miou,
-                               aux=self._aux_state(epoch + 1))
+                self._save(epoch + 1, metric=miou)
                 patience = self.cfg.early_stop_patience
                 if patience is not None and since_best >= patience:
                     log.info("early stop at epoch %d (no val improvement "
@@ -449,12 +558,14 @@ class Trainer:
         own (the same for every batch of the pass), so windowed votes see
         varied subsamples."""
         self._vote_pass = getattr(self, "_vote_pass", -1) + 1
-        for batch in self.val_loader:
+        for batch in _batches(self.val_loader, self.mesh):
             m = self._eval_batch(batch, self._vote_pass)
-            probs = _fetch(m["probs"])                       # [B, N, C]
-            point_idx = _fetch(m["point_idx"] if m.get("point_idx")
-                               is not None else batch.point_idx)  # [B, N]
-            cloud_idx = _fetch(batch.cloud_idx).reshape(-1)
+            # every rank's clouds, so that every rank votes alike
+            probs = _fetch(m["probs"], self.mesh)            # [B, N, C]
+            point_idx = _fetch(
+                m["point_idx"] if m.get("point_idx") is not None
+                else batch.point_idx, self.mesh)              # [B, N]
+            cloud_idx = _fetch(batch.cloud_idx, self.mesh).reshape(-1)
             for b in range(probs.shape[0]):
                 c = int(cloud_idx[b])
                 p_idx = point_idx[b]
@@ -469,18 +580,23 @@ class Trainer:
         clouds and write a PLY of dataset labels (network class + 1) per
         cloud and, where the dataset has the benchmark's name map
         (Semantic3D), the server's ascii ``.labels`` file of the same
-        labels (trainval.py:157-216). Returns the directory written."""
+        labels (trainval.py:157-216); under a mesh rank 0 writes them.
+        Returns the directory written."""
         from crfconv_tpu_torch.data.ply import write_ply
 
         cfg = self.cfg
         saving_path = saving_path or os.path.join(
             "results", cfg.dataset, "predictions")
-        os.makedirs(saving_path, exist_ok=True)
+        writer = self.mesh is None or self.mesh.rank == 0
+        if writer:
+            os.makedirs(saving_path, exist_ok=True)
         last_min, epoch = -0.5, 0
         while last_min < num_votes:
             self._vote_epoch(cfg.test_smooth)
-            new_min = float(np.min(self.val_set.min_possibility))
+            new_min = self._min_possibility()
             log.info("vote epoch %d, min possibility %.2f", epoch, new_min)
+            if last_min + cfg.vote_delta < new_min and not writer:
+                return saving_path    # every rank holds the same votes
             if last_min + cfg.vote_delta < new_min:
                 # Semantic3D names them test_proj / val_files, S3DIS
                 # val_proj / input_names
@@ -511,7 +627,7 @@ class Trainer:
         from crfconv_tpu_torch.train.vote import labeled_vote_eval
 
         return labeled_vote_eval(
-            self.val_set,
+            self.val_set if self.mesh is None else _GlobalCoverage(self),
             lambda: self._vote_epoch(self.cfg.test_smooth),
             self.test_probs,
             num_votes,
@@ -523,11 +639,11 @@ class Trainer:
         category -> pIoU and mpIoU over the val loader (reference
         utils/metrics.py:58-112)."""
         score = RunningScoreShapeNet()
-        for batch in self.val_loader:
+        for batch in _batches(self.val_loader, self.mesh):
             m = self._eval_batch(batch)
-            preds = _fetch(m["preds"])
-            labels = _fetch(m["labels"])      # in the order of preds
-            cats = _fetch(batch.category).reshape(-1)
+            preds = _fetch(m["preds"], self.mesh)
+            labels = _fetch(m["labels"], self.mesh)   # in the order of preds
+            cats = _fetch(batch.category, self.mesh).reshape(-1)
             for b in range(preds.shape[0]):
                 score.update(labels[b], preds[b], int(cats[b]))
         p_iou, mp_iou, cls = score.get_scores()

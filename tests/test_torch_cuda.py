@@ -51,11 +51,13 @@ need not have).
 from __future__ import annotations
 
 import ctypes
+import zlib
 
 import numpy as np
 import pytest
 import torch
 
+import test_torch_parallel_ranks as parallel_ranks
 from crfconv_tpu_torch import cuda_build
 from crfconv_tpu_torch.ops import (
     conv, crf_core, crf_sim, discrete_core, neighbors, windowed,
@@ -65,10 +67,14 @@ pytestmark = pytest.mark.cuda
 
 
 @pytest.fixture
-def dev():
+def dev(request):
+    """The card, with the default generators (the card's and the host's)
+    seeded from the test's id: a test's ``torch.randn(..., device=dev)``
+    draws its own inputs whatever ran before it."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (the kernels have no CPU mode)")
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.manual_seed(zlib.crc32(request.node.nodeid.encode()))
     return torch.device("cuda")
 
 
@@ -290,36 +296,110 @@ def test_point_conv_large_k_and_pad(dev, monkeypatch, h, k, r, pad, passes,
                                     n, staged):
     """K3 (r = 0) and K5 at stride 4 where the block's table of clamped
     rows or its staged window outgrows shared memory (a block then stages
-    nothing and reads its rows from L2) and just inside it: against the
-    plain version, the rider exact, out rerun-identical."""
+    nothing and reads its rows from L2) and just inside it: out against the
+    plain version evaluated in float64, within ``point_conv_error_bound``
+    (at K 200 the kernel and the float32 plain version part by more than
+    1e-4 on about one element in 30,000), the rider exact, out
+    rerun-identical. Every input comes from the case's seeded generator."""
     monkeypatch.setattr(conv, "block_passes", lambda *_: passes)
     m = n if r == 0 else n // 4
     assert _pc_staged(h, conv.stage_rows(m, n, h, passes, 64, pad), k,
                       passes) == staged
     rng = np.random.default_rng(60 + h + k + r)
-    pos = _sorted_cloud(rng, 1, n, dev)
-    x = torch.randn(1, n, h, device=dev)
-    idx = torch.as_tensor(
-        (np.arange(m) * (n // m))[None, :, None]
-        + rng.integers(-pad, pad, (1, m, k)), dtype=torch.int32, device=dev)
-    w = _mlp(h, dev, k + pad)
-    if r == 0:
-        def run(fn):
-            return (fn(x, pos, idx, *w, pad=pad),)
-        got, ref = (run(conv.point_conv_fused_infer),
-                    run(conv.point_conv_fused_infer_plain))
-    else:
-        sub_pos = pos[:, ::4].contiguous()
-        res = torch.randn(1, n, r, device=dev)
+    inputs = large_k_inputs(rng, h, k, r, pad, n, dev)
+    got, ref_64 = large_k_run(inputs, pad, r)
+    err = (got[0].double() - ref_64[0]).abs()
+    bound = point_conv_error_bound(inputs, pad)
+    assert bool((err <= bound).all()), (
+        f"out off float64 by {float(err.max()):.3g}, bound "
+        f"{float(bound[err > bound].min()):.3g} there")
+    if r:
+        assert torch.equal(got[1], ref_64[1].float())
+    assert torch.equal(got[0], large_k_run(inputs, pad, r, plain=False)[0])
 
-        def run(fn):
-            return fn(x, pos, sub_pos, idx, res, *w, pad=pad)
-        got, ref = (run(conv.point_conv_fused_strided),
-                    run(conv.point_conv_fused_strided_plain))
-        assert torch.equal(got[1], ref[1])
-    torch.testing.assert_close(got[0], ref[0], rtol=1e-4, atol=1e-4)
-    assert torch.equal(got[0], run(conv.point_conv_fused_infer if r == 0
-                                   else conv.point_conv_fused_strided)[0])
+
+def large_k_inputs(rng, h, k, r, pad, n, dev) -> dict:
+    """The inputs of a test_point_conv_large_k_and_pad case, every one
+    drawn from ``rng``: a sorted cloud of n points, x, the rider (r > 0:
+    stride 4), indices within ``pad`` of each output row's centre, the
+    weight MLP."""
+    m = n if r == 0 else n // 4
+    pos = _sorted_cloud(rng, 1, n, dev)
+    out = {
+        "x": torch.as_tensor(rng.standard_normal((1, n, h), np.float32),
+                             device=dev),
+        "pos": pos,
+        "sub_pos": pos if r == 0 else pos[:, ::4].contiguous(),
+        "idx": torch.as_tensor(
+            (np.arange(m) * (n // m))[None, :, None]
+            + rng.integers(-pad, pad, (1, m, k)), dtype=torch.int32,
+            device=dev),
+        "w": _mlp(h, dev, k + pad),
+    }
+    if r:
+        out["res"] = torch.as_tensor(
+            rng.standard_normal((1, n, r), np.float32), device=dev)
+    return out
+
+
+def large_k_run(inputs, pad, r, plain=True):
+    """(out[, res_max]) of K3 (r = 0) or K5 on ``inputs``, and, with
+    ``plain``, of the plain version in float64 beside it."""
+    x, pos, idx, w = (inputs[k] for k in ("x", "pos", "idx", "w"))
+
+    def run(fn, dtype=None):
+        cast = (lambda t: t) if dtype is None else (lambda t: t.to(dtype))
+        args = [cast(x), cast(pos)]
+        if r:
+            args.append(cast(inputs["sub_pos"]))
+        args.append(idx)
+        if r:
+            args.append(cast(inputs["res"]))
+        out = fn(*args, *map(cast, w), pad=pad)
+        return out if r else (out,)
+
+    kernel = (conv.point_conv_fused_strided if r
+              else conv.point_conv_fused_infer)
+    got = run(kernel)
+    if not plain:
+        return got
+    return got, run(conv.point_conv_fused_strided_plain if r
+                    else conv.point_conv_fused_infer_plain, torch.float64)
+
+
+def point_conv_error_bound(inputs, pad, slope=0.1):
+    """The most any float32 evaluation of K3/K5's out may lie from the
+    exact one, element by element, from float32's rounding (unit u =
+    2^-24), to first order, for any order of its sums:
+
+      rel = centre - p_j: |err| <= u |rel|;
+      p = rel . w0 (3 terms): |err| <= |e_rel| . |w0| + 5u |rel| . |w0|;
+      s = a0 p + c0, t = leaky(s): |err| <= |a0| e_p
+            + 2u (|a0| |rel| . |w0| + |c0|) + u |t|;
+      q = t . w1 (H terms), v = a1 q + c1: |err| <= |a1| (e_t . |w1|
+            + (H + 2) u |t| . |w1|) + 2u (|a1| |t| . |w1| + |c1|);
+      out = sum_k v_k x_k (K terms): |err| <= sum_k |x_k| e_v
+            + (K + 2) u sum_k |v_k x_k|;
+
+    twice that, for the second-order terms. Evaluated in float64 on the
+    rows the plain version gathers."""
+    u = 2.0 ** -24
+    x, pos, idx = inputs["x"], inputs["pos"], inputs["idx"]
+    w0, a0, c0, w1, a1, c1 = (t.double() for t in inputs["w"])
+    h, k = x.shape[-1], idx.shape[-1]
+    g = windowed.windowed_gather_plain(
+        torch.cat([pos, x], dim=-1).double(), idx, windowed.TILE, pad)
+    rel = inputs["sub_pos"].double()[:, :, None, :] - g[..., :3]
+    rw = rel.abs() @ w0.abs()
+    e_p = (u * rel.abs()) @ w0.abs() + 5 * u * rw
+    t = torch.nn.functional.leaky_relu(a0 * (rel @ w0) + c0, slope)
+    e_t = a0.abs() * e_p + 2 * u * (a0.abs() * rw + c0.abs()) + u * t.abs()
+    tw = t.abs() @ w1.abs()
+    v = a1 * (t @ w1) + c1
+    e_v = (a1.abs() * (e_t @ w1.abs() + (h + 2) * u * tw)
+           + 2 * u * (a1.abs() * tw + c1.abs()))
+    xk = g[..., 3:].abs()
+    return 2 * ((e_v * xk).sum(2) + (k + 2) * u * (v.abs() * xk).sum(2))
 
 
 @pytest.mark.parametrize("h,k", [(4, 15), (8, 15), (20, 7), (32, 15)])
@@ -1666,3 +1746,99 @@ def test_trainer_resume_on_the_card(dev, tmp_path):
     assert torch.equal(m1["loss"], m2["loss"])
     a, b = live.state.model.state_dict(), resumed.state.model.state_dict()
     assert all(torch.equal(a[n], b[n]) for n in a)
+
+
+# --------------------------------------------------------------------------
+# data-parallel steps on the card
+# --------------------------------------------------------------------------
+
+DP_NARROW = (16, 32, 64, 128, 256)
+
+
+def _dp_spec(steps: int) -> dict:
+    """A narrow flagship (dropout 0.5) and a global B2 x 1024 batch with
+    class weights and ignored labels, for ``steps`` windowed steps."""
+    from crfconv_tpu_torch import PointConvResNet
+
+    rng = np.random.default_rng(11)
+    y = rng.integers(0, 13, (2, 1024))
+    y[0, :9] = -1
+    kw = dict(n_classes=13, in_channels=6, use_crf=True, steps=1,
+              layers=DP_NARROW, dropout_rate=0.5)
+    model = PointConvResNet(device="cpu",
+                            generator=torch.Generator().manual_seed(4), **kw)
+    return {"kind": "step", "model": "PointConvResNet", "model_kw": kw,
+            "state": {k: v.numpy() for k, v in model.state_dict().items()},
+            "mode": {"mode": "windowed", "knn_exact": False},
+            "windowed": True, "steps": steps, "seed": 21,
+            "class_weights": (0.5 + rng.random(13)).astype(np.float32),
+            "batch": {"pos": rng.random((2, 1024, 3), np.float32),
+                      "x": rng.random((2, 1024, 6), np.float32), "y": y}}
+
+
+def test_dp_world_of_one_nccl_step_is_the_plain_step(dev):
+    """make_parallel_train_step over an nccl group of one rank: two steps
+    bit-equal to the one-process step's (the gradient bucket, the loss's
+    parts and the metrics all-reduced over one rank; the batch norms keep
+    their local statistics)."""
+    from crfconv_tpu_torch.parallel import (
+        close_mesh, make_mesh, make_parallel_train_step,
+    )
+    from crfconv_tpu_torch.train.train_state import (
+        TrainState, make_train_step,
+    )
+
+    spec = _dp_spec(2)
+    batch = parallel_ranks.make_batch(spec["batch"], dev)
+    states = []
+    for _ in range(2):
+        model = parallel_ranks.get_model("PointConvResNet", device=dev,
+                                         **spec["model_kw"])
+        model.load_state_dict({k: torch.as_tensor(v)
+                               for k, v in spec["state"].items()})
+        states.append(TrainState.create(model, lr=0.01))
+    cw = torch.as_tensor(spec["class_weights"], device=dev)
+    step = make_train_step(class_weights=cw)
+    mesh = make_mesh(1, backend="nccl", device=dev)
+    try:
+        pstep = make_parallel_train_step(step, mesh)
+        for i in range(2):
+            a = step(states[0], batch,
+                     torch.Generator(device=dev).manual_seed(21 + i))
+            b = pstep(states[1], batch,
+                      torch.Generator(device=dev).manual_seed(21 + i))
+            assert torch.equal(a["loss"], b["loss"])
+            assert torch.equal(a["confusion"], b["confusion"])
+            sa, sb = (s.model.state_dict() for s in states)
+            assert all(torch.equal(sa[k], sb[k]) for k in sa)
+    finally:
+        close_mesh(mesh)
+
+
+def test_dp_two_gloo_ranks_share_the_card(dev, tmp_path):
+    """Two gloo ranks on cuda:0, each on one cloud of the global batch:
+    two steps against the one-process step on the card (loss rtol 1e-5,
+    parameters rtol 1e-3 / atol 5e-5, running statistics rtol 1e-3 / atol
+    1e-5), the ranks bit-equal after each step."""
+    from crfconv_tpu_torch.parallel import launch
+
+    spec = _dp_spec(2)
+    r0, r1 = (r["dp"] for r in launch(
+        parallel_ranks.run_scenarios, 2, ["cuda:0", "cuda:0"], "gloo",
+        args=({"dp": spec},), init_method=f"file://{tmp_path}/pg",
+        timeout_s=600))
+    one = parallel_ranks.step_scenario(None, {**spec, "device": "cuda"})
+    assert r0["loss"] == r1["loss"]
+    np.testing.assert_allclose(r0["loss"], one["loss"], rtol=1e-5)
+    params = {n for n, _ in parallel_ranks.get_model(
+        "PointConvResNet", device="cpu", **spec["model_kw"]
+    ).named_parameters()}
+    for i in range(2):
+        np.testing.assert_array_equal(r0["confusion"][i],
+                                      one["confusion"][i])
+        for k, ref in one["states"][i].items():
+            assert np.array_equal(r0["states"][i][k], r1["states"][i][k]), k
+            tol = (dict(rtol=1e-3, atol=5e-5) if k in params
+                   else dict(rtol=1e-3, atol=1e-5))
+            np.testing.assert_allclose(r0["states"][i][k], ref.numpy(),
+                                       err_msg=k, **tol)

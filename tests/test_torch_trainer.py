@@ -371,7 +371,9 @@ class TestDeviceScope:
         assert get_compute_dtype() is None
 
     def test_mesh_options_raise(self, s3dis_root, tmp_path):
-        with pytest.raises(NotImplementedError, match="n_devices"):
+        # n_devices > 1 trains data-parallel over an initialised process
+        # group; without one it raises
+        with pytest.raises(RuntimeError, match="n_devices"):
             Trainer(_cfg(S3DISConfig, s3dis_root, tmp_path), device="cpu",
                     n_devices=2)
         with pytest.raises(NotImplementedError, match="spatial_mesh"):
@@ -553,7 +555,7 @@ def test_eval_partseg_matches_jax():
         def __init__(self, c, torch_side):
             self.category = torch.as_tensor(c) if torch_side else c
 
-    port = _Stub(val_loader=[Batch(c, True) for c in batches])
+    port = _Stub(val_loader=[Batch(c, True) for c in batches], mesh=None)
     feed = iter(outs)
     port._eval_batch = lambda b: {k: torch.as_tensor(v)
                                   for k, v in next(feed).items()}
