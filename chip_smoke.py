@@ -245,6 +245,22 @@
     first epoch's checkpoint bit-identical to the uninterrupted one. Two
     ranks on one card measure correctness and the collectives' cost, not
     scaling.
+35. Point sharding (spatial_phase): (a) an nccl point group of one,
+    Predictor(mesh=...) on Semantic3D's full-width flagship at B8 x 65536
+    against Predictor() (max |dlogit| within 1e-4 of the largest logit);
+    (b) two gloo ranks of a point group sharing the card: that request
+    served point-sharded (each rank's pyramid bit-equal to its span of the
+    unsharded build, the scores against Predictor()'s), SP_STEPS flagship
+    steps through make_spatial_train_step at B4 x 65536 (dropout 0)
+    against the one-process steps (loss rtol 1e-5, states at the
+    train-step tolerance, the ranks bit-equal), ScanNet's CRFSegNet (steps
+    10, B8 x 8192) served and stepped once (its chunked CRF cores, K9-K12,
+    on halo-extended frames), ScanNet-discrete served (K13 in chunks, K2 in
+    the model), a Trainer with spatial_mesh (1, 2) on phase 27's rooms;
+    every kernel call of a rank's first pass held against its plain
+    version, a pass's launches equal on both ranks and from pass to pass,
+    K7 never; a rank's request or step ms, its exchanges', all-gathers'
+    and all-reduces' share of it and peak memory.
 
 The data phases print which host backend ran (the native library's
 file). Prints the card's name and power limit, one JSON line of kernel results
@@ -5418,6 +5434,663 @@ def dp_phase(dev, rng, out_dir: str, results: dict) -> dict:
     return report
 
 
+SP_RANKS = 2            # gloo ranks of the point group sharing the card
+SP_REQUESTS = 2         # timed requests a rank, after the recorded one
+SP_STEPS = 2            # point-sharded flagship steps (B4 x 65536), the
+#                         first recorded
+SP_STEP_BATCH = 4
+SP_POINTS = 65536       # Semantic3D's clouds: the request and the steps
+SP_SERVE_BATCH = 8      # Semantic3D's request
+SP_SCANNET_BATCH = 8    # ScanNet's and ScanNet-discrete's request and step
+SP_TRAINER_STEPS = 3    # train steps of the point-sharded Trainer's epoch
+SP_TRAINER_BATCH = 4
+# the kernels whose recorded inputs are buffers overwritten later (the
+# CRF cores' ping-pong states)
+SP_SNAPSHOT = ("crf_operator", "crf_iterate", "crf_iterate_bwd",
+               "crf_neighbor_dot", "discrete_iterate", "discrete_iterate_bwd")
+# the kernels each point-sharded path must launch (and K7 never)
+SP_NEEDS = {
+    "semantic3d serve": ("windowed_gather", "window_knn",
+                         "point_conv_fused_infer", "point_conv_fused_strided",
+                         "crf_similarity_message"),
+    "flagship train": ("windowed_gather", "window_knn", "windowed_gather_bwd",
+                       "leaky_relu_bwd"),
+    "scannet serve": ("windowed_gather", "window_knn", "crf_operator",
+                      "crf_iterate"),
+    "scannet train": ("windowed_gather", "window_knn", "windowed_gather_bwd",
+                      "crf_operator", "crf_iterate", "crf_iterate_bwd",
+                      "crf_neighbor_dot", "leaky_relu_bwd"),
+    "discrete serve": ("windowed_gather", "window_knn", "crf_operator",
+                       "discrete_iterate"),
+    "trainer": ("windowed_gather", "window_knn", "windowed_gather_bwd",
+                "leaky_relu_bwd"),
+}
+
+
+def sp_sites(discrete: bool = False) -> dict:
+    """Every kernel wrapper a point-sharded path reaches, at the attribute
+    the halo-exchanged operations call it through (K1 inside its autograd
+    Function and outside it, K3-K5 from ``parallel/spatial_forward.py``),
+    with its plain version."""
+    from crfconv_tpu_torch.ops import conv, crf_sim
+
+    sites = {
+        **train_call_sites(), **crf_call_sites(),
+        "point_conv_fused_infer": (conv, "point_conv_fused_infer",
+                                   conv.point_conv_fused_infer,
+                                   conv.point_conv_fused_infer_plain),
+        "point_conv_fused_strided": (conv, "point_conv_fused_strided",
+                                     conv.point_conv_fused_strided,
+                                     conv.point_conv_fused_strided_plain),
+        "crf_similarity_message": (crf_sim, "crf_similarity_message",
+                                   crf_sim.crf_similarity_message,
+                                   crf_sim.crf_similarity_message_plain),
+    }
+    if discrete:
+        sites.update(discrete_call_sites())
+    return sites
+
+
+class CommTimer:
+    """The point group's communication in a rank's run, timed with events
+    around each call (under gloo a call's window holds its copies through
+    the host and the wait for the peer): the halo exchanges' sends and
+    receives, the replicated all-gathers, and the all-reduces (batch
+    statistics, gradients, loss and metrics)."""
+
+    def __init__(self):
+        self.marks = []
+
+    @contextlib.contextmanager
+    def installed(self):
+        import torch.distributed as dist
+
+        from crfconv_tpu_torch.parallel import (
+            spatial, spatial_build, spatial_forward,
+        )
+
+        def timed(what, fn):
+            def run(*a, **kw):
+                m0 = cuda_mark()
+                out = fn(*a, **kw)
+                self.marks.append((what, m0, cuda_mark()))
+                return out
+            return run
+
+        with patched([
+                (spatial, "_sendrecv", timed("exchange", spatial._sendrecv)),
+                (spatial_forward, "all_gather_points",
+                 timed("all_gather", spatial_forward.all_gather_points)),
+                (spatial_build, "all_gather_points",
+                 timed("all_gather", spatial_build.all_gather_points)),
+                (dist, "all_reduce", timed("all_reduce", dist.all_reduce))]):
+            yield
+
+    def split(self) -> dict:
+        """{what: {"ms", "calls"}} since the last split."""
+        out = {}
+        for what, a, b in self.marks:
+            b.synchronize()
+            r = out.setdefault(what, {"ms": 0.0, "calls": 0})
+            r["ms"] += a.elapsed_time(b)
+            r["calls"] += 1
+        self.marks = []
+        return out
+
+
+def s3d_model(dev, seed: int = SEED + 35):
+    """Semantic3D's full-width flagship (8 classes), seeded batch norms."""
+    from crfconv_tpu_torch import PointConvResNet
+    from crfconv_tpu_torch.train.config import Semantic3DConfig
+
+    cfg = Semantic3DConfig()
+    gen = torch.Generator().manual_seed(seed)
+    return randomize_batch_norms(PointConvResNet(
+        cfg.num_classes, cfg.in_channels, use_crf=True, steps=cfg.steps,
+        device=dev, generator=gen), gen)
+
+
+def sp_flagship_state(dev):
+    """The full-width flagship (Semantic3D's 8 classes) at dropout 0."""
+    from crfconv_tpu_torch import PointConvResNet, TrainState
+
+    model = PointConvResNet(8, C_IN, use_crf=True, steps=1, dropout_rate=0.0,
+                            device=dev,
+                            generator=torch.Generator().manual_seed(SEED + 5))
+    return TrainState.create(model, lr=LR)
+
+
+def sp_scannet_model(dev, cfg):
+    """ScanNet's CRFSegNet with randomised batch norms and compatibilities,
+    as phase 10's."""
+    model = randomize_batch_norms(scannet_model(cfg, dev, SEED + 7),
+                                  torch.Generator().manual_seed(SEED + 7))
+    gen = torch.Generator().manual_seed(SEED + 8)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith(".c"):
+                p.add_(0.1 * torch.randn(p.shape, generator=gen).to(dev))
+    return model
+
+
+def sp_raw(batch: dict, dev):
+    from crfconv_tpu_torch import RawBatch
+
+    return RawBatch(**{k: torch.as_tensor(v, device=dev)
+                       for k, v in batch.items()})
+
+
+def sp_host(t) -> np.ndarray:
+    return t.detach().float().cpu().numpy()
+
+
+def sp_serve(label, predictor, pos, feats, sites, requests, discrete=False):
+    """A rank's point-sharded requests: the first recorded (every kernel
+    call held afterwards), then ``requests`` timed; each one's launches,
+    event ms and communication; the scores of the first (the last head's
+    for a two-head net, gathered and unsorted as the Predictor does)."""
+    from crfconv_tpu_torch import cuda_build
+    from crfconv_tpu_torch.parallel import all_gather_points
+
+    def serve():
+        with torch.inference_mode():
+            if not discrete:
+                return predictor.predict_logits(pos, feats)
+            batch, order = predictor.prepare_spatial(pos, feats)
+            fn, info = predictor.spatial_forward(int(order.shape[1]))
+            out = fn(batch)[-1]      # log q
+            if int(order.shape[1]) in info["sharded_scales"]:
+                out = all_gather_points(out, predictor.mesh)
+            return predictor.restore(out, order)
+
+    comm = CommTimer()
+    out = {"ms": [], "counts": [], "comm": []}
+    calls = None
+    for i in range(1 + requests):
+        before = cuda_build.launch_counts()
+        with comm.installed():
+            m0 = cuda_mark()
+            if calls is None:
+                got = []
+                calls = record_calls(sites, lambda: got.append(serve()),
+                                     snapshot=SP_SNAPSHOT)
+                scores = got[0]
+            else:
+                serve()
+            m1 = cuda_mark()
+        m1.synchronize()
+        out["ms"].append(m0.elapsed_time(m1))
+        out["counts"].append(counts_since(before))
+        out["comm"].append(comm.split())
+    out["scores"] = sp_host(scores)
+    hold_calls(label, sites, calls)
+    return out
+
+
+def sp_steps(label, state, raws, step, sites):
+    """A rank's point-sharded train steps on ``raws``: the first recorded
+    (every kernel call held afterwards); each one's launches, event ms,
+    communication, loss and state (on the host)."""
+    from crfconv_tpu_torch import cuda_build
+
+    comm = CommTimer()
+    out = {"ms": [], "counts": [], "comm": [], "loss": [], "states": []}
+    calls = None
+    for i, raw in enumerate(raws):
+        before = cuda_build.launch_counts()
+        with comm.installed():
+            m0 = cuda_mark()
+            if calls is None:
+                got = []
+                calls = record_calls(sites, lambda: got.append(step(
+                    state, raw, step_generator(raw.pos.device, i))),
+                    snapshot=SP_SNAPSHOT)
+                m = got[0]
+            else:
+                m = step(state, raw, step_generator(raw.pos.device, i))
+            m1 = cuda_mark()
+        m1.synchronize()
+        out["ms"].append(m0.elapsed_time(m1))
+        out["counts"].append(counts_since(before))
+        out["comm"].append(comm.split())
+        out["loss"].append(float(m["loss"]))
+        out["states"].append(dp_host_state(state.model))
+    hold_calls(label, sites, calls)
+    return out
+
+
+def sp_spatial_step(mesh, n, mode, label_offset=0, ignore_index=-1):
+    """RawBatch -> this rank's span of the pyramid (the step's generator
+    draws the offsets, then the dropout, as the one-process step) -> the
+    point-sharded train step."""
+    from crfconv_tpu_torch.parallel import (
+        build_windowed_batch_spatial, make_spatial_train_step,
+    )
+    from crfconv_tpu_torch.parallel.spatial_build import pyramid_lengths
+
+    step = make_spatial_train_step(
+        mesh, set(pyramid_lengths(n)), mode,
+        ignore_index=ignore_index, label_offset=label_offset)
+
+    def run(state, raw, gen):
+        return step(state, build_windowed_batch_spatial(raw, mesh, gen,
+                                                        mode=mode), gen)
+
+    return run
+
+
+def sp_build_equal(mesh, pos, mode) -> bool:
+    """This rank's point-sharded pyramid of a request against its span of
+    the unsharded builder's, from the Predictor's generator: bit-equal."""
+    from crfconv_tpu_torch.ops.morton import morton_order
+    from crfconv_tpu_torch.ops.windowed import build_pyramid_windowed
+    from crfconv_tpu_torch.parallel import build_pyramid_windowed_spatial
+
+    dev = pos.device
+    order = morton_order(pos)
+    pos_s = torch.take_along_dim(pos, order[..., None], dim=1)
+    with torch.inference_mode():
+        got = build_pyramid_windowed_spatial(
+            pos_s, mesh, generator=torch.Generator(device=dev).manual_seed(
+                SEED), mode=mode)
+        _, ref = build_pyramid_windowed(
+            pos, generator=torch.Generator(device=dev).manual_seed(SEED),
+            tile=mode.tile, pad=mode.pad, knn_exact=mode.knn_exact,
+            device=dev)
+    ok = True
+    for g, r in zip(got, ref):
+        for a, b in zip(g, r):
+            if a.shape[1] != b.shape[1]:
+                n = a.shape[1]
+                b = b[:, mesh.rank * n:(mesh.rank + 1) * n]
+            ok = ok and torch.equal(a, b)
+    return ok
+
+
+def sp_rank(mesh, spec: dict) -> dict:
+    """One rank of phase 35's point group: Semantic3D's request served
+    point-sharded (its build held bit-equal to the unsharded build's), the
+    flagship's point-sharded steps, ScanNet's request and step, the
+    discrete net's request, a point-sharded Trainer; this rank's failed
+    checks and held calls come back with the results."""
+    global EXACT, CARD
+    from crfconv_tpu_torch import NeighborMode, Predictor, cuda_build
+    from crfconv_tpu_torch.serve import SERVING_MODE
+    from crfconv_tpu_torch.train.train_state import TRAIN_MODE
+
+    EXACT = NeighborMode("exact")
+    CARD = spec["card"]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = mesh.device
+    r = mesh.rank
+    out = {"rank": r}
+    torch.cuda.reset_peak_memory_stats()
+
+    pos, feats = (torch.as_tensor(spec["s3d"][k], device=dev)
+                  for k in ("pos", "feats"))
+    out["build_equal"] = sp_build_equal(mesh, pos, SERVING_MODE)
+    pred = Predictor(s3d_model(dev), mesh=mesh, seed=SEED)
+    out["semantic3d serve"] = sp_serve(f"point-sharded semantic3d rank {r}",
+                                       pred, pos, feats, sp_sites(),
+                                       SP_REQUESTS)
+    del pred
+    out["peak_gib_serve"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    torch.cuda.empty_cache()
+
+    torch.cuda.reset_peak_memory_stats()
+    state = sp_flagship_state(dev)
+    raws = [sp_raw(b, dev) for b in spec["flagship_batches"]]
+    step = sp_spatial_step(mesh, raws[0].pos.shape[1], TRAIN_MODE)
+    out["flagship train"] = sp_steps(f"point-sharded flagship train rank {r}",
+                                     state, raws, step, sp_sites())
+    out["peak_gib_train"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    del state, raws
+    torch.cuda.empty_cache()
+
+    cfg = scannet_config()
+    spos, sfeats = (torch.as_tensor(spec["scannet"][k], device=dev)
+                    for k in ("pos", "feats"))
+    pred = Predictor(sp_scannet_model(dev, cfg), mesh=mesh, seed=SEED)
+    out["scannet serve"] = sp_serve(f"point-sharded scannet rank {r}", pred,
+                                    spos, sfeats, sp_sites(), 0)
+    state = scannet_state(cfg, dev, SEED + 9)
+    step = sp_spatial_step(mesh, cfg.sample_num, TRAIN_MODE,
+                           cfg.label_offset, cfg.ignore_index)
+    out["scannet train"] = sp_steps(
+        f"point-sharded scannet train rank {r}", state,
+        [sp_raw(spec["scannet_batch"], dev)], step, sp_sites())
+    del pred, state
+    torch.cuda.empty_cache()
+
+    pred = Predictor(discrete_model(cfg, dev, SEED + 10), mesh=mesh,
+                     seed=SEED)
+    out["discrete serve"] = sp_serve(
+        f"point-sharded discrete rank {r}", pred, spos, sfeats,
+        sp_sites(discrete=True), 0, discrete=True)
+    del pred
+    torch.cuda.empty_cache()
+
+    out["trainer"] = sp_rank_trainer(mesh, spec["trainer"])
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    out["failures"] = list(FAILURES)
+    out["held"] = {k: v for k, v in HELD.items() if v}
+    return out
+
+
+def sp_rank_trainer(mesh, cfg_kw: dict) -> dict:
+    """A Trainer with ``spatial_mesh`` (1, 2) on the two ranks: an epoch of
+    SP_TRAINER_STEPS steps and its 2-view val pass; its losses, launches,
+    state and the checkpoint files this rank saw written."""
+    from crfconv_tpu_torch import cuda_build
+    from crfconv_tpu_torch.train.config import S3DISConfig
+    from crfconv_tpu_torch.train.trainer import Trainer
+
+    t = Trainer(S3DISConfig(**cfg_kw), seed=SEED, device=mesh.device)
+    t.losses, step = [], t._train_step
+
+    def rec(state, batch, rng):
+        m = step(state, batch, rng)
+        t.losses.append(float(m["loss"]))
+        return m
+
+    t._train_step = rec
+    before = cuda_build.launch_counts()
+    t0 = time.perf_counter()
+    best = t.train()
+    run_s = time.perf_counter() - t0
+    return {"losses": t.losses, "best": best, "run_s": run_s,
+            "counts": counts_since(before),
+            "state": dp_host_state(t.model),
+            "files": sorted(os.listdir(t.ckpt.directory))}
+
+
+def sp_world1(dev, pos, feats) -> dict:
+    """Phase 35 (a): Semantic3D's request through Predictor(mesh=...) over
+    an nccl point group of one (zero halos) against Predictor() on the
+    same request; both timed; the sharded request's launches."""
+    from crfconv_tpu_torch import Predictor, cuda_build
+    from crfconv_tpu_torch.parallel import close_mesh, make_mesh
+
+    model = s3d_model(dev)
+    ref_pred = Predictor(model, device=dev, seed=SEED)
+    with torch.inference_mode():
+        ref = ref_pred.predict_logits(pos, feats)
+        ref_ms = median_ms(lambda: ref_pred.predict_logits(pos, feats),
+                           runs=3, warmup=1)
+    mesh = make_mesh(1, backend="nccl" if dev.type == "cuda" else "gloo",
+                     device=dev)
+    try:
+        pred = Predictor(model, mesh=mesh, seed=SEED)
+        with torch.inference_mode():
+            pred.predict_logits(pos, feats)           # warm-up
+            torch.cuda.synchronize()
+            before = cuda_build.launch_counts()
+            got = pred.predict_logits(pos, feats)
+            torch.cuda.synchronize()
+            counts = counts_since(before)
+            ms = median_ms(lambda: pred.predict_logits(pos, feats), runs=3,
+                           warmup=1)
+    finally:
+        close_mesh(mesh)
+    d = float((got - ref).abs().max())
+    scale = float(ref.abs().max())
+    agree = float((got.argmax(-1) == ref.argmax(-1)).float().mean())
+    expect(d <= 1e-4 * scale and agree >= 0.999,
+           f"point-sharded world 1: max |dlogit| {d} (scale {scale}), argmax "
+           f"agreement {agree}")
+    for k in SP_NEEDS["semantic3d serve"]:
+        expect(counts[k] > 0, f"point-sharded world 1: {k} not launched")
+    expect(counts["windowed_weighted_reduce"] == 0,
+           "point-sharded world 1: K7 launched")
+    record_launches("point-sharded world 1 (nccl)", counts, counts, 1,
+                    "requests")
+    print(f"# point-sharded world 1 (nccl), B8 x 65536: max |dlogit| {d:.3g} "
+          f"(max |logit| {scale:.3g}), argmax agreement {agree}; request "
+          f"{ms:.3f} ms against Predictor()'s {ref_ms:.3f} ms (median of 3); "
+          f"launches {only_nonzero(counts)} [{CARD}]", flush=True)
+    return {"ref": ref, "max_abs_dlogit": d, "argmax_agreement": agree,
+            "request_ms": ms, "unsharded_request_ms": ref_ms,
+            "launches": only_nonzero(counts)}
+
+
+def only_nonzero(counts: dict) -> dict:
+    return {k: v for k, v in counts.items() if v}
+
+
+def sp_refs(dev, spec) -> dict:
+    """The one-process references of phase 35 (b): the flagship's steps and
+    ScanNet's step (losses, states), ScanNet's and the discrete net's
+    scores."""
+    from crfconv_tpu_torch import Predictor
+    from crfconv_tpu_torch.train.train_state import (
+        TRAIN_MODE, make_train_step,
+    )
+
+    refs = {}
+    state = sp_flagship_state(dev)
+    step = make_train_step(TRAIN_MODE)
+    refs["flagship"] = {"loss": [], "states": []}
+    for i, b in enumerate(spec["flagship_batches"]):
+        raw = sp_raw(b, dev)
+        m = step(state, raw, step_generator(dev, i))
+        refs["flagship"]["loss"].append(float(m["loss"]))
+        refs["flagship"]["states"].append(dp_host_state(state.model))
+    del state
+    cfg = scannet_config()
+    spos, sfeats = (torch.as_tensor(spec["scannet"][k], device=dev)
+                    for k in ("pos", "feats"))
+    pred = Predictor(sp_scannet_model(dev, cfg), device=dev, seed=SEED)
+    with torch.inference_mode():
+        refs["scannet_scores"] = sp_host(pred.predict_logits(spos, sfeats))
+    state = scannet_state(cfg, dev, SEED + 9)
+    m = make_train_step(TRAIN_MODE, ignore_index=cfg.ignore_index,
+                        label_offset=cfg.label_offset)(
+        state, sp_raw(spec["scannet_batch"], dev), step_generator(dev, 0))
+    refs["scannet"] = {"loss": [float(m["loss"])],
+                       "states": [dp_host_state(state.model)]}
+    pred = Predictor(discrete_model(cfg, dev, SEED + 10), device=dev,
+                     seed=SEED)
+    refs["discrete_scores"] = sp_host(serve_last_head(pred, spos, sfeats))
+    del pred, state
+    torch.cuda.empty_cache()
+    return refs
+
+
+def sp_comm_share(r: dict) -> dict:
+    """A path's median ms a request or step (events, after the recorded
+    first) and each kind of communication's share of it."""
+    runs = list(zip(r["ms"], r["comm"]))[1:] or list(zip(r["ms"], r["comm"]))
+    ms = statistics.median(m for m, _ in runs)
+    kinds = {w for _, c in runs for w in c}
+    return {"ms": ms, "share": {w: statistics.median(
+        c.get(w, {"ms": 0.0})["ms"] / m for m, c in runs) for w in kinds},
+        "calls": {w: runs[0][1].get(w, {"calls": 0})["calls"]
+                  for w in kinds}}
+
+
+def spatial_phase(dev, rng, out_dir: str, results: dict) -> dict:
+    """Phase 35: point sharding. (a) an nccl point group of one:
+    Predictor(mesh=...) on Semantic3D's full-width flagship at B8 x 65536
+    against Predictor(); (b) SP_RANKS gloo ranks sharing the card (nccl
+    takes one rank a card), a point group: that request served
+    point-sharded (each rank's pyramid bit-equal to its span of the
+    unsharded build; the scores against Predictor()'s), SP_STEPS flagship
+    steps through make_spatial_train_step at B4 x 65536 (dropout 0)
+    against the one-process step (loss rtol 1e-5, states at the train-step
+    tolerance), ScanNet's CRFSegNet (steps 10, B8 x 8192) served and
+    stepped once (its chunked cores K9-K12 on halo-extended frames),
+    ScanNet-discrete served (K13 in chunks, K2 in the model), a Trainer
+    with spatial_mesh (1, 2) on phase 27's rooms (an epoch of
+    SP_TRAINER_STEPS steps at B4 x 8192 and its val pass); every kernel
+    call of a rank's first pass held against its plain version, each
+    pass's launches equal on both ranks and from pass to pass, K7 never;
+    a rank's request or step ms (events), the exchanges', all-gathers'
+    and all-reduces' share of it, peak GiB a rank. Two ranks on one card
+    measure correctness and the communication's cost, not scaling."""
+    import tempfile
+
+    from crfconv_tpu_torch import cuda_build
+    from crfconv_tpu_torch.parallel import launch
+    from crfconv_tpu_torch.train.config import S3DISConfig
+    from crfconv_tpu_torch.train.trainer import _build_dataset
+
+    t0 = time.perf_counter()
+    s3d_n, sb = SP_POINTS, SP_SCANNET_BATCH
+    pos = torch.as_tensor(rng.random((SP_SERVE_BATCH, s3d_n, 3),
+                                     dtype=np.float32), device=dev)
+    feats = torch.as_tensor(rng.random((SP_SERVE_BATCH, s3d_n, C_IN),
+                                       dtype=np.float32), device=dev)
+    world1 = sp_world1(dev, pos, feats)
+    s3d_ref = sp_host(world1.pop("ref"))
+    cfg = scannet_config()
+    spec = {
+        "card": CARD,
+        "s3d": {"pos": pos.cpu().numpy(), "feats": feats.cpu().numpy()},
+        "flagship_batches": [{
+            "pos": rng.random((SP_STEP_BATCH, s3d_n, 3), dtype=np.float32),
+            "x": rng.random((SP_STEP_BATCH, s3d_n, C_IN), dtype=np.float32),
+            "y": rng.integers(0, 8, (SP_STEP_BATCH, s3d_n))}
+            for _ in range(SP_STEPS)],
+        "scannet": {"pos": rng.random((sb, cfg.sample_num, 3),
+                                      dtype=np.float32),
+                    "feats": rng.random((sb, cfg.sample_num, cfg.in_channels),
+                                        dtype=np.float32)},
+        "scannet_batch": {
+            "pos": rng.random((sb, cfg.sample_num, 3), dtype=np.float32),
+            "x": rng.random((sb, cfg.sample_num, cfg.in_channels),
+                            dtype=np.float32),
+            "y": rng.integers(0, cfg.num_classes + 1, (sb, cfg.sample_num))},
+    }
+    del pos, feats
+    refs = sp_refs(dev, spec)
+    torch.cuda.empty_cache()
+    cuda_build.build()      # the ranks load what is built, build nothing
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_sp_") as tmp:
+        root = os.path.join(tmp, "s3dis")
+        write_s3dis_rooms(root, np.random.default_rng(SEED + 27))
+        spec["trainer"] = {
+            "root": root, "sample_num": N, "batch_size": SP_TRAINER_BATCH,
+            "epochs": 1, "spatial_mesh": (1, SP_RANKS),
+            "checkpoint_dir": os.path.join(tmp, "ckpt"),
+            "train_samples_per_epoch": SP_TRAINER_STEPS * SP_TRAINER_BATCH,
+            "val_samples_per_epoch": SP_TRAINER_BATCH}
+        _build_dataset(S3DISConfig(**spec["trainer"]))
+        t1 = time.perf_counter()
+        ranks = launch(sp_rank, SP_RANKS, [str(dev)] * SP_RANKS, "gloo",
+                       args=(spec,), timeout_s=900)
+        ranks_s = time.perf_counter() - t1
+    for r in ranks:
+        for what in r["failures"]:
+            expect(False, f"rank {r['rank']}: {what}")
+        for name, paths in r["held"].items():
+            HELD[name].update(paths)
+    report = {"world1": world1, "ranks_s": ranks_s,
+              "build_bit_equal": [r["build_equal"] for r in ranks],
+              "peak_gib": [r["peak_gib"] for r in ranks],
+              "peak_gib_serve": [r["peak_gib_serve"] for r in ranks],
+              "peak_gib_train": [r["peak_gib_train"] for r in ranks]}
+    expect(all(report["build_bit_equal"]), "point-sharded build: a rank's "
+           "pyramid is not its span of the unsharded build's")
+    a, b = ranks
+    for key in ("semantic3d serve", "flagship train", "scannet serve",
+                "scannet train", "discrete serve"):
+        path = f"point-sharded {key} ({SP_RANKS} ranks)"
+        ra, rb = a[key], b[key]
+        per = ra["counts"][0]
+        for r in (ra, rb):
+            for i, c in enumerate(r["counts"]):
+                expect(c == per, f"{path}: pass {i} launched {only_nonzero(c)}"
+                       f", the first {only_nonzero(per)}")
+        for k in SP_NEEDS[key]:
+            expect(per[k] > 0, f"{path}: {k} not launched")
+        expect(per["windowed_weighted_reduce"] == 0, f"{path}: K7 launched")
+        units = len(ra["counts"])
+        summed = {k: sum(c[k] for r in (ra, rb) for c in r["counts"])
+                  for k in REPLACES}
+        record_launches(path, summed, per, SP_RANKS * units, "rank-passes")
+        share = [sp_comm_share(r) for r in (ra, rb)]
+        report[key] = {"launches_a_rank_pass": only_nonzero(per),
+                       "ms": [r["ms"] for r in (ra, rb)], "comm": share}
+        print(f"# {path}: a rank's pass {[round(s['ms'], 3) for s in share]}"
+              f" ms (events, median after the recorded first), its "
+              f"communication's share (windows, the peer's wait included): "
+              + "; ".join(f"rank {i}: " + ", ".join(
+                  f"{w} {v:.3f} ({s['calls'][w]} calls)"
+                  for w, v in sorted(s["share"].items()))
+                  for i, s in enumerate(share))
+              + f"; launches a rank-pass {only_nonzero(per)} [{CARD}; two "
+              f"ranks share one card: correctness and the communication's "
+              f"cost, not scaling]", flush=True)
+
+    for key, ref_key in (("semantic3d serve", None), ("scannet serve",
+                                                      "scannet_scores"),
+                         ("discrete serve", "discrete_scores")):
+        ref = s3d_ref if ref_key is None else refs[ref_key]
+        got = [r[key]["scores"] for r in (a, b)]
+        d = float(np.abs(got[0] - ref).max())
+        scale = float(np.abs(ref).max())
+        agree = float((got[0].argmax(-1) == ref.argmax(-1)).mean())
+        expect(np.array_equal(got[0], got[1]), f"point-sharded {key}: the "
+               "ranks' scores differ")
+        expect(d <= 1e-4 * scale and agree >= 0.999, f"point-sharded {key}: "
+               f"max |d| {d} (scale {scale}), argmax agreement {agree}")
+        report[key].update(max_abs_d=d, argmax_agreement=agree)
+        print(f"# point-sharded {key}: against the one-process Predictor, "
+              f"max |d| {d:.3g} (max {scale:.3g}), argmax agreement {agree}",
+              flush=True)
+    for key, ref in (("flagship train", refs["flagship"]),
+                     ("scannet train", refs["scannet"])):
+        ra, rb = a[key], b[key]
+        n = len(ref["loss"])
+        losses = ra["loss"][-n:]
+        gap = max(abs(x - y) / abs(y) for x, y in zip(losses, ref["loss"]))
+        expect(ra["loss"] == rb["loss"] and gap <= 1e-5,
+               f"point-sharded {key}: losses {ra['loss']} / {rb['loss']} "
+               f"against the one process's {ref['loss']}")
+        equal = [all(np.array_equal(sa[k], sb[k]) for k in sa)
+                 for sa, sb in zip(ra["states"], rb["states"])]
+        expect(all(equal), f"point-sharded {key}: the ranks' states differ "
+               f"{equal}")
+        gaps = [dp_states_gap(sa, sr) for sa, sr in
+                zip(ra["states"][-n:], ref["states"])]
+        expect(all(g <= 1.0 for g, _ in gaps), f"point-sharded {key}: states"
+               f" against the one process's at {gaps} of the tolerance")
+        report[key].update(loss=ra["loss"], one_process_loss=ref["loss"],
+                           loss_rel_gap=gap, state_gap_of_tolerance=gaps)
+        print(f"# point-sharded {key}: losses {losses} (one process "
+              f"{ref['loss']}, rel gap {gap:.3g}), ranks bit-equal {equal}, "
+              f"states at {max(g for g, _ in gaps):.3g} of the tolerance",
+              flush=True)
+
+    ta, tb = a["trainer"], b["trainer"]
+    expect(len(ta["losses"]) == SP_TRAINER_STEPS
+           and all(np.isfinite(ta["losses"])) and ta["losses"] == tb["losses"]
+           and all(np.array_equal(ta["state"][k], tb["state"][k])
+                   for k in ta["state"]),
+           f"point-sharded trainer: losses {ta['losses']} / {tb['losses']}")
+    expect(bool(ta["files"]) and ta["files"] == tb["files"],
+           f"point-sharded trainer: checkpoint files {ta['files']}")
+    for k in SP_NEEDS["trainer"]:
+        expect(ta["counts"][k] > 0, f"point-sharded trainer: {k} not launched")
+    expect(ta["counts"]["windowed_weighted_reduce"] == 0,
+           "point-sharded trainer: K7 launched")
+    expect(ta["counts"] == tb["counts"], "point-sharded trainer: the ranks' "
+           "launches differ")
+    record_launches(f"point-sharded trainer ({SP_RANKS} ranks)", {
+        k: ta["counts"][k] + tb["counts"][k] for k in REPLACES},
+        {k: ta["counts"][k] + tb["counts"][k] for k in REPLACES}, 1, "runs")
+    report["trainer"] = {"losses": ta["losses"], "best": ta["best"],
+                         "run_s": [ta["run_s"], tb["run_s"]],
+                         "launches_a_rank": only_nonzero(ta["counts"])}
+    print(f"# point-sharded trainer (spatial_mesh (1, {SP_RANKS}), B"
+          f"{SP_TRAINER_BATCH} x {N}): losses {ta['losses']}, best mIoU "
+          f"{ta['best']:.4f}, run {ta['run_s']:.1f} s; peak GiB a rank "
+          f"{report['peak_gib']}; the ranks took {ranks_s:.1f} s; phase "
+          f"{time.perf_counter() - t0:.1f} s [{CARD}]", flush=True)
+    return report
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -5572,7 +6245,8 @@ def main() -> int:
                     ("trainer_shapenet", trainer_shapenet_phase),
                     ("bf16", bf16_phase), ("parity", parity_phase),
                     ("utils", utils_phase),
-                    ("data_parallel", dp_phase)):
+                    ("data_parallel", dp_phase),
+                    ("point_sharded", spatial_phase)):
         run_path(key, fn)
     # the driver's overhead a step: the Trainer's S3DIS steps against the
     # plain step's in a loop, in turns on the same placed batches,

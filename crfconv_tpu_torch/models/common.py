@@ -3,9 +3,9 @@
 Counterpart of ``crfconv_tpu/models/common.py``: ``MLP`` is Linear (bias
 iff no batch norm) -> batch norm -> activation. Parameter and buffer names
 follow the flax tree (``convert.from_flax``). The batch norm takes an
-optional point-validity mask, and under a data-parallel step
-(``ops/spatial_state.py``) reduces its statistics over every rank's rows;
-dropout then draws its mask at the global batch's shape.
+optional point-validity mask, and under a data-parallel or point-sharded
+step (``ops/spatial_state.py``) reduces its statistics over every rank's
+rows; dropout then draws its mask at the global batch's shape.
 
 The compute dtype (``set_compute_dtype``, ``compute_dtype_scope``) is the
 dtype of every MLP's product, as flax's ``nn.Dense(dtype=...)`` of the JAX
@@ -75,18 +75,25 @@ def dropout(x: torch.Tensor, rate: float,
     global batch's shape ``[world * B, ...]`` and rank r keeps rows
     ``[r * B, (r + 1) * B)``, as the JAX package's global program draws it:
     every rank's generator, seeded alike, stays in step with a one-process
-    run on the whole batch."""
+    run on the whole batch. Under a point-sharded step a sharded frame's
+    mask is drawn at the global point length too, and this rank keeps its
+    span of the points."""
     if rate == 0.0:
         return x
     if generator is None:
         raise ValueError("dropout in training needs an explicit generator")
     if rate >= 1.0:
         return torch.zeros_like(x)
-    mesh = spatial_state.data_mesh()
-    world, rank = (1, 0) if mesh is None else (mesh.world, mesh.rank)
+    n = x.shape[1] if x.dim() >= 2 else None
+    world, rank, span = spatial_state.dropout_layout(n)
     b = x.shape[0]
-    keep = torch.rand((world * b,) + tuple(x.shape[1:]), generator=generator,
+    shape = (world * b,) + tuple(x.shape[1:])
+    if span is not None:     # a sharded frame: the mask of every point
+        shape = shape[:1] + (span[1],) + shape[2:]
+    keep = torch.rand(shape, generator=generator,
                       device=x.device)[rank * b:(rank + 1) * b]
+    if span is not None:
+        keep = keep[:, span[0]:span[0] + n]
     return torch.where(keep >= rate, x / (1.0 - rate), torch.zeros_like(x))
 
 
@@ -113,8 +120,11 @@ class MaskedBatchNorm(nn.Module):
     statistics are those of every rank's rows, in JAX's two-pass form: the
     count and the sum are all-reduced, then the sum of squared deviations
     from the global mean (the one-pass sum of squares would cancel in
-    float32). The all-reduces are differentiable, and the running
-    statistics, updated from the global ones, stay equal on every rank.
+    float32). Under a point-sharded step they are those of every rank
+    holding a part of the frame's rows, in JAX's one-pass form there (one
+    all-reduce of the count, the sum and the sum of squares). The
+    all-reduces are differentiable, and the running statistics, updated
+    from the global ones, stay equal on every rank.
     With no mask and no such step the statistics are today's local ones.
     """
 
@@ -133,10 +143,11 @@ class MaskedBatchNorm(nn.Module):
             return (y * self.scale + self.bias).to(x.dtype)
         xf = x.to(torch.promote_types(x.dtype, torch.float32))
         dims = tuple(range(x.dim() - 1))
-        mesh = spatial_state.data_mesh()
-        if mesh is not None and mesh.world == 1:
-            mesh = None        # one rank's statistics are the global ones
-        if mask is None and mesh is None:
+        mesh, one_pass = spatial_state.stats_mesh(
+            x.shape[1] if x.dim() >= 2 else None)
+        if one_pass:
+            mean, var, count = self._one_pass_stats(xf, dims, mask, mesh)
+        elif mask is None and mesh is None:
             mean = xf.mean(dim=dims)
             var = (xf - mean).square().mean(dim=dims)
             count = float(x.numel() // x.shape[-1])
@@ -152,6 +163,27 @@ class MaskedBatchNorm(nn.Module):
             self.var.copy_(m * self.var + (1 - m) * unbiased)
         y = (x - mean) * torch.rsqrt(var + self.epsilon)
         return (y * self.scale + self.bias).to(x.dtype)
+
+    @staticmethod
+    def _one_pass_stats(xf, dims, mask, mesh):
+        """(mean, biased variance, count) of a point-sharded step's frame:
+        JAX's one all-reduce of (sum, sum of squares, count) over
+        ``mesh``."""
+        if mask is None:
+            count = xf.new_tensor(float(xf.numel() // xf.shape[-1]))
+            s1 = xf.sum(dim=dims)
+            s2 = xf.square().sum(dim=dims)
+        else:
+            m = mask.to(xf.dtype)[..., None]
+            count = m.sum()
+            s1 = (xf * m).sum(dim=dims)
+            s2 = (xf.square() * m).sum(dim=dims)
+        both = _all_reduce(torch.cat([s1, s2, count[None]]), mesh)
+        f = s1.shape[0]
+        count = both[-1].detach().clamp_min(1.0)
+        mean = both[:f] / count
+        var = (both[f:2 * f] / count - mean.square()).clamp_min(0.0)
+        return mean, var, count
 
     @staticmethod
     def _global_stats(xf, dims, mask, mesh):

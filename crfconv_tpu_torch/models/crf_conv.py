@@ -20,6 +20,7 @@ import torch
 import torch.nn as nn
 
 from crfconv_tpu_torch.models.common import MLP, leaky_relu001, leaky_relu01
+from crfconv_tpu_torch.ops import spatial_state
 from crfconv_tpu_torch.ops.crf import crf_mean_field, gaussian_similarity
 from crfconv_tpu_torch.ops.crf_sim import crf_similarity_message, sim_eligible
 from crfconv_tpu_torch.ops.neighbors import (
@@ -64,12 +65,26 @@ class ContinuousCRFConv(nn.Module):
         y = self.pairwise_nn_1(self.pairwise_nn_0(pairwise))
         x = upsample_nearest(x, up_idx[..., :1], mode)       # [B, N, hidden]
 
+        sim = None
         if sim_eligible(self.training, self.hidden, nidx.shape[1],
                         mode.windowed):
-            # fused setup: similarity softmax and first message in one pass
-            msg0, s = crf_similarity_message(
-                y.contiguous(), x.contiguous(), nidx, mode.tile, mode.pad
-            )
+            if spatial_state.point_ctx() is None:
+                # fused setup: similarity softmax and first message in one
+                # pass
+                sim = crf_similarity_message(
+                    y.contiguous(), x.contiguous(), nidx, mode.tile,
+                    mode.pad)
+            else:
+                # point-sharded: the kernel on the halo-extended frame
+                # (parallel/spatial_forward.py); its message goes unused by
+                # the chunked iteration; None where the halo is infeasible
+                from crfconv_tpu_torch.parallel.spatial_forward import (
+                    spatial_crf_similarity,
+                )
+
+                sim = spatial_crf_similarity(y, x, nidx, mode)
+        if sim is not None:
+            msg0, s = sim
             x = crf_mean_field(x, s, nidx, self.c, self.steps, mode, msg0=msg0)
         else:
             # one gather of [y, z]: guidance and first message share indices

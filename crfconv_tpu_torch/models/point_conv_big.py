@@ -18,6 +18,7 @@ from crfconv_tpu_torch.models.common import (
     MLP, dropout, leaky_relu001, leaky_relu01,
 )
 from crfconv_tpu_torch.models.crf_conv import ContinuousCRFConv
+from crfconv_tpu_torch.ops import spatial_state
 from crfconv_tpu_torch.ops.conv import (
     fold_bn, fused_eligible, point_conv_fused_infer, point_conv_fused_strided,
     train_fused_eligible,
@@ -59,18 +60,33 @@ class PointConv(nn.Module):
         ):
             w0, a0, c0 = _folded(self.weight_nn_0)
             w1, a1, c1 = _folded(self.weight_nn_1)
-            if sub_pos is None:
+            if spatial_state.point_ctx() is not None:
+                # point-sharded: the same kernel on the halo-extended frame
+                # (parallel/spatial_forward.py); None where the halo is
+                # infeasible, and the unfused gathers below take the op
+                from crfconv_tpu_torch.parallel.spatial_forward import (
+                    spatial_point_conv_fused,
+                )
+
+                out = spatial_point_conv_fused(
+                    x, pos, sub_pos, neighbor_idx, extra,
+                    (w0, a0, c0, w1, a1, c1), mode,
+                )
+                if out is not None:
+                    return out
+            elif sub_pos is None:
                 return point_conv_fused_infer(
                     x.contiguous(), pos, neighbor_idx, w0, a0, c0, w1, a1,
                     c1, mode.tile, mode.pad,
                 )
-            # strided, with the residual max-pooled over the same
-            # neighbours in the same pass
-            return point_conv_fused_strided(
-                x.contiguous(), pos, sub_pos, neighbor_idx,
-                extra.contiguous(), w0, a0, c0, w1, a1, c1, mode.tile,
-                mode.pad,
-            )
+            else:
+                # strided, with the residual max-pooled over the same
+                # neighbours in the same pass
+                return point_conv_fused_strided(
+                    x.contiguous(), pos, sub_pos, neighbor_idx,
+                    extra.contiguous(), w0, a0, c0, w1, a1, c1, mode.tile,
+                    mode.pad,
+                )
         if sub_pos is None and train_fused_eligible(
             self.training, self.d_model, neighbor_idx.shape[1],
             neighbor_idx.shape[2], mode.windowed, mode.tile,

@@ -27,7 +27,7 @@ from crfconv_tpu_torch.models.discrete_crf import DiscreteCRFConv
 from crfconv_tpu_torch.models.point_conv_small import (
     SmallBaselineNet, SmallCRFNet,
 )
-from crfconv_tpu_torch.ops import windowed
+from crfconv_tpu_torch.ops import spatial_state, windowed
 from crfconv_tpu_torch.ops.neighbors import NeighborMode, knn_bruteforce
 
 # the discrete CRF's neighbourhood: the reference's radius_graph(r = 0.2,
@@ -41,10 +41,19 @@ def _discrete_crf_idx(pos: torch.Tensor, mode: NeighborMode) -> torch.Tensor:
     """Self-inclusive kNN(32) at the finest scale, rebuilt per forward as
     the reference rebuilds its graph: window-consistent in the windowed
     regime (K2, with the pyramid's selection rule), else the exact kNN
-    (``knn_bruteforce``, K6 selecting)."""
+    (``knn_bruteforce``, K6 selecting). Under a point-sharded step a
+    sharded frame's kNN runs halo-exchanged on this rank's rows and returns
+    global indices (``parallel/spatial_build.py``)."""
     k = min(DISCRETE_CRF_K, pos.shape[1])
     if not mode.windowed:
         return knn_bruteforce(pos, pos, k)
+    fr = spatial_state.frame(pos.shape[1])
+    if fr is not None and fr[0]:
+        from crfconv_tpu_torch.parallel.spatial_build import _knn_local
+
+        ctx = spatial_state.point_ctx()
+        return _knn_local(pos, min(DISCRETE_CRF_K, fr[1]), ns_g=fr[1],
+                          mesh=ctx["points"], mode=mode)
     return windowed.window_knn_auto(
         pos, k, tile=mode.tile, pad=mode.pad, knn_exact=mode.knn_exact,
     )

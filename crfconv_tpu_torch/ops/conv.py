@@ -26,6 +26,7 @@ import torch.nn.functional as F
 from crfconv_tpu_torch.cuda_build import (
     POINT_CONV_FUSED_INFER, POINT_CONV_FUSED_STRIDED,
 )
+from crfconv_tpu_torch.ops import spatial_state
 from crfconv_tpu_torch.ops._launch import (
     check, check_no_grad, float32_io, launch_on, on_cuda, raw_stream,
     sm_count,
@@ -64,10 +65,13 @@ def train_fused_eligible(training: bool, hidden: int, n_rows: int, k: int,
     gather-reduce (``ops/windowed.py::weighted_gather_reduce``, kernel K7)
     in the windowed regime for hidden <= FUSED_MAX_H, K a multiple of
     128 // tile and at least FUSED_MIN_ROWS rows, as the reference's
-    ``conv_pallas.train_fused_eligible`` (without its VMEM guard)."""
+    ``conv_pallas.train_fused_eligible`` (without its VMEM guard). Under a
+    point-sharded step (``ops/spatial_state.py``) it stays off, as there:
+    the unfused gathers carry the halo exchange."""
     return (
         training and windowed and hidden <= FUSED_MAX_H
         and k % max(128 // tile, 1) == 0 and n_rows >= FUSED_MIN_ROWS
+        and spatial_state.point_ctx() is None
     )
 
 

@@ -26,6 +26,7 @@ from typing import Optional
 
 import torch
 
+from crfconv_tpu_torch.ops import spatial_state
 from crfconv_tpu_torch.ops._launch import widen
 from crfconv_tpu_torch.ops.crf_core import compat_products, crf_core
 from crfconv_tpu_torch.ops.discrete_core import discrete_core
@@ -59,22 +60,34 @@ def crf_mean_field(
     mode: NeighborMode,
     neighbors0: Optional[torch.Tensor] = None,
     msg0: Optional[torch.Tensor] = None,
+    x0: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """``steps`` mean-field iterations from x = z.
+    """``steps`` mean-field iterations from x = z, or from ``x0`` where it
+    is given (the unary stays z: a chunk of the halo-exchanged iteration,
+    ``parallel/spatial.py``, restarts from the state it was handed).
 
     ``neighbors0`` ([B, N, K, H]) are the pre-gathered neighbours of z;
     ``msg0`` ([B, N, H]) is the pre-reduced first message sum_k s_k z_j.
     Either saves the scan's first gather. The fused core (windowed, steps
     >= 2) recomputes every message from (s, idx) and ignores both, as the
-    JAX package's fused path does.
+    JAX package's fused path does. Under a point-sharded step
+    (``ops/spatial_state.py``) the iteration runs in halo-exchanged chunks
+    on this rank's rows (``parallel/spatial_forward.py``), which drop both.
     """
+    if mode.windowed and spatial_state.point_ctx() is not None:
+        from crfconv_tpu_torch.parallel.spatial_forward import (
+            crf_mean_field_ctx,
+        )
+
+        return crf_mean_field_ctx(z, s, neighbor_idx, c, steps, mode)
     if mode.windowed and steps >= 2:
         # the fused core runs in at least float32 (a bfloat16 z is widened,
         # as the JAX package's fused path does) and returns z's dtype
         _, inv, M = compat_products(c)
         zf = widen(z)
         zp = zf @ inv.to(zf.dtype)
-        return crf_core(zf, zp, s, neighbor_idx, M.to(zf.dtype), steps,
+        start = zf if x0 is None else widen(x0)
+        return crf_core(start, zp, s, neighbor_idx, M.to(zf.dtype), steps,
                         mode.tile, mode.pad).to(z.dtype)
     C, inv, _ = compat_products(c)
     C = C.to(z.dtype)
@@ -86,7 +99,7 @@ def crf_mean_field(
     def update(neigh):
         return apply(torch.einsum("bnk,bnkh->bnh", s, neigh))
 
-    x = z
+    x = z if x0 is None else x0
     remaining = steps
     if msg0 is not None and steps > 0:
         x = apply(msg0.to(z.dtype))
@@ -116,10 +129,19 @@ def discrete_crf_update(
     p, unary [B, N, L], edge weights w [B, N, K], neighbor_idx [B, N, K],
     compat C [L, L], optional neighbour validity mask [B, N, K] (masked
     weights are zeroed first) -> q [B, N, L]. The windowed regime at steps
-    >= 2 runs the fused core, as the JAX package's dispatch does."""
+    >= 2 runs the fused core, as the JAX package's dispatch does; under a
+    point-sharded step on a sharded frame the iteration runs in
+    halo-exchanged chunks on this rank's rows (``parallel/spatial.py``)."""
     if mask is not None:
         w = torch.where(mask, w, torch.zeros((), dtype=w.dtype,
                                              device=w.device))
+    if mode.windowed and spatial_state.point_ctx() is not None:
+        from crfconv_tpu_torch.parallel.spatial_forward import (
+            discrete_crf_update_ctx,
+        )
+
+        return discrete_crf_update_ctx(p, unary, w, neighbor_idx, compat,
+                                       steps, mode)
     if mode.windowed and steps >= 2:
         return discrete_core(p, unary, w, neighbor_idx, compat, steps,
                              mode.tile, mode.pad)

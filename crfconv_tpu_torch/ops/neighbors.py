@@ -15,6 +15,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from crfconv_tpu_torch.ops import spatial_state
 from crfconv_tpu_torch.ops.windowed import (
     PAD, TILE, select_min_k, windowed_gather,
 )
@@ -56,8 +57,16 @@ class NeighborMode:
 def gather_neighbors(
     x: torch.Tensor, idx: torch.Tensor, mode: NeighborMode
 ) -> torch.Tensor:
-    """x [B, N, F], idx [B, M, K] -> [B, M, K, F]."""
+    """x [B, N, F], idx [B, M, K] -> [B, M, K, F]. Under a point-sharded
+    step (``ops/spatial_state.py``) the windowed gather runs on this rank's
+    rows, halo-exchanged (``parallel/spatial_forward.py``)."""
     if mode.windowed:
+        if spatial_state.point_ctx() is not None:
+            from crfconv_tpu_torch.parallel.spatial_forward import (
+                spatial_gather,
+            )
+
+            return spatial_gather(x, idx, mode)
         return windowed_gather(x, idx, mode.tile, mode.pad)
     B, M, K = idx.shape
     flat = idx.reshape(B, M * K, 1).long().expand(-1, -1, x.shape[-1])

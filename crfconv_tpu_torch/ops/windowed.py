@@ -41,6 +41,10 @@ PAD = 128      # extra candidate rows on each side of a tile
 # select exactly), as in the reference's dispatch; it is also the widest
 # row K6's packed key (10 column bits) takes.
 PACKED_MAX_WIDTH = 1024
+# The coordinate of a source row outside the cloud in the in-window kNN
+# (K2 reads it there too): farther than any point, so never a neighbour
+# while a window holds k points of the cloud.
+FAR_PAD = 2e9
 
 
 def window_starts(m_out: int, n_src: int, tile: int = TILE, pad: int = PAD):
@@ -432,7 +436,7 @@ def window_knn_plain(
     nt = starts.shape[0]
     dev = pos.device
     qp = F.pad(q, (0, 0, 0, nt * tile - M), value=1e9).reshape(B, nt, tile, 3)
-    xp = _pad_src(pos, front, width, starts, value=2e9)
+    xp = _pad_src(pos, front, width, starts, value=FAR_PAD)
     st = torch.as_tensor(starts, device=dev)
     win = xp[:, st[:, None] + torch.arange(width, device=dev)]  # [B,nt,W,3]
     qx, qy, qz = (c[..., None] for c in qp.unbind(-1))         # [B,nt,T,1]

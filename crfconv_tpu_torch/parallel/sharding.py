@@ -15,6 +15,11 @@ shape, the loss is each rank's numerator over the global denominator, and
 the gradients are summed over the ranks in one flat bucket before the
 optimizer's step. So a step on ``world`` ranks equals, up to the order of
 its sums, the one-process step on the ranks' batches put together.
+
+Point sharding (``parallel/spatial*.py``) splits each cloud's rows over a
+point group instead: :func:`make_spatial_mesh` lays the ranks out as the
+JAX package's 2-D (data x points) mesh, one point group and one data
+group a rank, and :func:`shard_points` cuts a batch to a rank's part.
 """
 
 from __future__ import annotations
@@ -33,6 +38,7 @@ import torch
 
 from crfconv_tpu_torch.data.batch import batch_size_of, slice_batch
 from crfconv_tpu_torch.ops import spatial_state
+from crfconv_tpu_torch.ops.windowed import PAD, TILE
 
 # how long a rank waits for the others at a collective before it fails
 COLLECTIVE_TIMEOUT_S = 600
@@ -47,6 +53,27 @@ class Mesh:
     device: torch.device
     backend: str
     group: Optional[object] = None    # None: the default process group
+    # the global ranks of the group's members in group order (None: the
+    # default group, whose ranks are their own)
+    ranks: Optional[tuple] = None
+
+    def global_rank(self, r: int) -> int:
+        """The global rank of this group's rank ``r``."""
+        return r if self.ranks is None else self.ranks[r]
+
+
+@dataclasses.dataclass(frozen=True)
+class SpatialMesh:
+    """This process's place in a data x points grid of ranks (the JAX
+    package's 2-D mesh with axes ("data", "points")): global rank
+    ``d * d_pts + p`` holds data shard d's clouds and rows [p * L,
+    (p + 1) * L) of their sharded scales. ``points`` is its point group
+    (the d_pts ranks of one data shard), ``data`` its data group (the d_data
+    ranks of one span), None where d_data is 1."""
+
+    world: Mesh
+    points: Mesh
+    data: Optional[Mesh] = None
 
 
 def free_port() -> int:
@@ -126,6 +153,44 @@ def make_mesh(
     if backend == "nccl" and device.type != "cuda":
         raise ValueError("nccl needs a CUDA device a rank")
     return Mesh(world, rank, device, backend)
+
+
+def make_spatial_mesh(
+    d_data: int, d_pts: int, mesh: Optional[Mesh] = None, **mesh_kw,
+) -> SpatialMesh:
+    """The data x points grid over the world ``mesh`` (default:
+    ``make_mesh(d_data * d_pts, **mesh_kw)``), whose size must be
+    ``d_data * d_pts``. Every rank creates every subgroup, as
+    ``torch.distributed.new_group`` asks."""
+    import torch.distributed as dist
+
+    if d_data < 1 or d_pts < 1:
+        raise ValueError(f"spatial mesh ({d_data}, {d_pts})")
+    if mesh is None:
+        mesh = make_mesh(d_data * d_pts, **mesh_kw)
+    if mesh.world != d_data * d_pts:
+        raise ValueError(f"a ({d_data}, {d_pts}) mesh needs "
+                         f"{d_data * d_pts} ranks, the group has {mesh.world}")
+    d, p = divmod(mesh.rank, d_pts)
+    if d_data == 1:
+        return SpatialMesh(mesh, mesh)
+    points = data = None
+    for g in range(d_data):
+        ranks = tuple(g * d_pts + q for q in range(d_pts))
+        group = dist.new_group(list(ranks))
+        if g == d:
+            points = Mesh(d_pts, p, mesh.device, mesh.backend, group, ranks)
+    for q in range(d_pts):
+        ranks = tuple(g * d_pts + q for g in range(d_data))
+        group = dist.new_group(list(ranks))
+        if q == p:
+            data = Mesh(d_data, d, mesh.device, mesh.backend, group, ranks)
+    return SpatialMesh(mesh, points, data)
+
+
+def point_mesh(mesh) -> Mesh:
+    """The point group of a :class:`SpatialMesh`, or ``mesh`` itself."""
+    return mesh.points if isinstance(mesh, SpatialMesh) else mesh
 
 
 def close_mesh(mesh: Mesh) -> None:
@@ -234,6 +299,40 @@ def shard_batch(batch, mesh: Mesh):
                          f"{mesh.world} ranks")
     b = nb // mesh.world
     return slice_batch(batch, mesh.rank * b, b)
+
+
+def shard_points(batch, mesh, sharded=None, tile: int = TILE,
+                 pad: int = PAD):
+    """This rank's part of a global PointBatch (or RawBatch) under the
+    point-sharding policy: every tensor whose point axis (dim 1) has a
+    sharded length (``sharded``, default
+    ``parallel.spatial_forward.choose_sharded_scales`` of the batch at the
+    geometry ``tile``, ``pad``) is cut to this rank's span [p * L,
+    (p + 1) * L) of its point group; the others stay whole. Under a
+    :class:`SpatialMesh` with a data group the clouds are cut to the data
+    shard's first (``shard_batch``)."""
+    from crfconv_tpu_torch.parallel.spatial_forward import (
+        choose_sharded_scales,
+    )
+
+    if isinstance(mesh, SpatialMesh) and mesh.data is not None:
+        batch = shard_batch(batch, mesh.data)
+    pts = point_mesh(mesh)
+    if sharded is None:
+        sharded = choose_sharded_scales(batch, pts.world, tile, pad)
+
+    def cut(v):
+        if isinstance(v, torch.Tensor):
+            if v.dim() >= 2 and v.shape[1] in sharded:
+                n = v.shape[1] // pts.world
+                return v[:, pts.rank * n:(pts.rank + 1) * n].contiguous()
+            return v
+        if isinstance(v, tuple):
+            return type(v)(*map(cut, v)) if hasattr(v, "_fields") else (
+                tuple(map(cut, v)))
+        return v
+
+    return cut(batch)
 
 
 def replicate(state, mesh: Mesh):

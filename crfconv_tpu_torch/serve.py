@@ -1,8 +1,12 @@
 """Inference API: raw clouds in, per-point labels out.
 
-Counterpart of ``crfconv_tpu/serve.py::Predictor`` on one device: Morton
-sort, pyramid build, forward and inverse permutation behind one call.
-Point-sharded (mesh) serving is not ported yet.
+Counterpart of ``crfconv_tpu/serve.py::Predictor``: Morton sort, pyramid
+build, forward and inverse permutation behind one call, on one device, or
+point-sharded over the ranks of a point group (``mesh``): every rank sorts
+the request and builds its span of the pyramid
+(``parallel/spatial_build.py``), the model runs halo-exchanged
+(``parallel/spatial_forward.py``), and the scores are gathered and
+unsorted, so every rank returns the whole request's.
 """
 
 from __future__ import annotations
@@ -21,7 +25,7 @@ SERVING_MODE = NeighborMode("windowed", knn_exact=False)
 
 
 class Predictor:
-    """Windowed inference runner for one device.
+    """Windowed inference runner, on one device or point-sharded.
 
     Args:
       model:  a ``PointConvResNet``, ``CRFSegNet`` or ``CRFSegNet_Part``
@@ -35,16 +39,28 @@ class Predictor:
       device: where the pyramid and the forward run.
       seed:   seeds the stratified subsampling of every call, so a cloud
               always gets the same pyramid.
+      mesh:   a point group's ``parallel.Mesh`` (or a ``SpatialMesh``,
+              whose point group serves): the request is served
+              point-sharded over its ranks, on the rank's device (the
+              ``device`` argument is not used); every rank of the group
+              calls with the same request and gets the whole result.
     """
 
     def __init__(
         self, model: torch.nn.Module, mode: NeighborMode = SERVING_MODE,
-        device="cuda", seed: int = 0,
+        device="cuda", seed: int = 0, mesh=None,
     ):
+        self.mesh = None
+        if mesh is not None:
+            from crfconv_tpu_torch.parallel.sharding import point_mesh
+
+            self.mesh = point_mesh(mesh)
+            device = self.mesh.device
         self.device = torch.device(device)
         self.model = model.to(self.device).eval()
         self.mode = dataclasses.replace(mode, mode="windowed")
         self.seed = seed
+        self._spatial = {}     # the point-sharded forward of each length
 
     def prepare(
         self, pos, feats, offsets: Optional[Sequence] = None, category=None,
@@ -86,8 +102,69 @@ class Predictor:
         scores (the model's output: logits or log-probabilities) in the
         input point order. ``offsets`` and ``category`` as in
         :meth:`prepare`."""
+        if self.mesh is not None:
+            return self._predict_spatial(pos, feats, offsets, category)
         batch, order = self.prepare(pos, feats, offsets, category)
         return self.restore(self.model(batch, self.mode), order)
+
+    def prepare_spatial(
+        self, pos, feats, offsets: Optional[Sequence] = None, category=None,
+    ) -> Tuple[PointBatch, torch.Tensor]:
+        """This rank's part of the request's pyramid under ``mesh``: the
+        whole request Morton-sorted, then this rank's span of the pyramid
+        (``build_pyramid_windowed_spatial``, the subsampling drawn as
+        :meth:`prepare` draws it) and of the features. Returns (the local
+        batch, ``order``)."""
+        from crfconv_tpu_torch.ops.morton import morton_order
+        from crfconv_tpu_torch.parallel.spatial_build import (
+            build_pyramid_windowed_spatial, spatial_pyramid_scales,
+        )
+
+        pos = torch.as_tensor(pos, dtype=torch.float32, device=self.device)
+        feats = torch.as_tensor(feats, dtype=torch.float32, device=self.device)
+        gen = None
+        if offsets is None:
+            gen = torch.Generator(device=self.device).manual_seed(self.seed)
+        order = morton_order(pos)
+        pos_s = torch.take_along_dim(pos, order[..., None], dim=1)
+        scales = build_pyramid_windowed_spatial(
+            pos_s, self.mesh, generator=gen, offsets=offsets, mode=self.mode)
+        n, world = int(pos.shape[1]), self.mesh.world
+        x = torch.take_along_dim(feats, order[..., None], dim=1)
+        if n in spatial_pyramid_scales(n, world, self.mode.tile,
+                                       self.mode.pad):
+            loc = n // world
+            x = x[:, self.mesh.rank * loc:(self.mesh.rank + 1) * loc]
+        if category is not None:
+            category = torch.as_tensor(category, device=self.device)
+        return PointBatch(x=x.contiguous(), y=None, scales=scales,
+                          category=category), order
+
+    def spatial_forward(self, n: int):
+        """(fn, info) of ``parallel.make_spatial_forward`` for requests of
+        ``n`` points, made once a length."""
+        from crfconv_tpu_torch.parallel.spatial_build import pyramid_lengths
+        from crfconv_tpu_torch.parallel.spatial_forward import (
+            make_spatial_forward,
+        )
+
+        if n not in self._spatial:
+            self._spatial[n] = make_spatial_forward(
+                self.model, self.mesh, set(pyramid_lengths(n)), self.mode)
+        return self._spatial[n]
+
+    def _predict_spatial(self, pos, feats, offsets, category):
+        from crfconv_tpu_torch.parallel.spatial_forward import (
+            all_gather_points,
+        )
+
+        batch, order = self.prepare_spatial(pos, feats, offsets, category)
+        n = int(order.shape[1])
+        fn, info = self.spatial_forward(n)
+        out = fn(batch)
+        if n in info["sharded_scales"]:
+            out = all_gather_points(out, self.mesh)
+        return self.restore(out, order)
 
     def predict(self, pos, feats, offsets: Optional[Sequence] = None,
                 category=None):

@@ -14,11 +14,16 @@ and joins the group; otherwise N ranks are spawned on ``cuda:0`` ..
 ``cuda:N-1`` (raising where fewer cards are present), or on the CPU with
 ``--device cpu``. ``--backend`` names the process group's backend (default
 ``nccl`` on cards, ``gloo`` on the CPU).
+
+``--set spatial_mesh=D,P`` trains point-sharded on D x P ranks (D data
+shards, each cloud's points split over P ranks; the windowed regime), as
+``--n-devices D*P`` starts them.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import logging
 import os
 
@@ -27,8 +32,10 @@ from crfconv_tpu_torch.train.trainer import Trainer
 from crfconv_tpu_torch.utils.logging import LOGGER, init_logger
 
 
-def _coerce(value: str, ref):
-    """``value`` as the type of the field's current value ``ref``."""
+def _coerce(value: str, ref, kind: str = None):
+    """``value`` as the type of the field's current value ``ref`` (where it
+    is None, as the field's annotation ``kind`` names it: a tuple of ints
+    from comma-separated values)."""
     if isinstance(ref, bool):
         return value.lower() in ("1", "true", "yes")
     if isinstance(ref, int):
@@ -37,6 +44,8 @@ def _coerce(value: str, ref):
         return float(value)
     if isinstance(ref, tuple):
         return tuple(type(ref[0])(v) for v in value.split(","))
+    if ref is None and kind is not None and "Tuple[int" in kind:
+        return tuple(int(v) for v in value.split(","))
     return value
 
 
@@ -79,7 +88,9 @@ def parse(argv=None):
         key, _, value = kv.partition("=")
         if not hasattr(cfg, key):
             raise SystemExit(f"unknown config field {key!r}")
-        setattr(cfg, key, _coerce(value, getattr(cfg, key)))
+        kind = {f.name: str(f.type)
+                for f in dataclasses.fields(cfg)}.get(key)
+        setattr(cfg, key, _coerce(value, getattr(cfg, key), kind))
     return cfg, args
 
 
@@ -122,6 +133,9 @@ def main(argv=None):
 
     cfg, args = parse(argv)
     n = args.n_devices
+    if n is None and getattr(cfg, "spatial_mesh", None):
+        n = int(cfg.spatial_mesh[0]) * int(cfg.spatial_mesh[1])
+        args.n_devices = n
     if n is None or n <= 1 or dist.is_initialized():
         return _run(cfg, args, args.device)
     if "WORLD_SIZE" in os.environ and "RANK" in os.environ:   # torchrun

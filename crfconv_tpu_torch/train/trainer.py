@@ -27,15 +27,27 @@ probabilities, so every rank holds the same vote accumulators and takes
 the same decisions; rank 0 writes the checkpoints, whose sidecar keeps
 every rank's loader state.
 
+``cfg.spatial_mesh = (d_data, d_pts)`` trains point-sharded on a world of
+d_data * d_pts ranks (``parallel.make_spatial_mesh``; windowed regime
+only): the d_pts ranks of a point group load the same data shard (of
+d_data) and each builds its span of the pyramid
+(``parallel.build_windowed_batch_spatial``) and steps through
+``parallel.make_spatial_train_step``; validation and the vote passes run
+the one-rank eval step, data-parallel over the data group, as the JAX
+package evaluates on one device.
+
 Departures from the JAX package: the neighbour regime is passed to the
 steps as a :class:`NeighborMode` (there is no process-wide regime); one
 ``torch.Generator`` on the device stands for the trainer's PRNG key (its
 state is in the sidecar); the compute dtype is scoped to the trainer's own
 calls; the JAX package's single-process ``n_devices=N`` splits one batch
 of ``batch_size`` over N devices, while here each of the N ranks loads
-``batch_size``; a data-parallel vote pass stops once every rank's sampler
-has covered the clouds (the smallest of the ranks' minimum possibilities);
-point-sharded training (``cfg.spatial_mesh``) is not ported and raises.
+``batch_size`` (under ``spatial_mesh`` each data shard); a data-parallel
+vote pass stops once every rank's sampler has covered the clouds (the
+smallest of the ranks' minimum possibilities); the point-sharded step
+turns the curve with ``curve_jitter`` as the one-rank step does, and
+draws its dropout at the global shape (the JAX package's spatial step
+does neither).
 """
 
 from __future__ import annotations
@@ -169,6 +181,32 @@ def _join_mesh(n_devices: int, device: torch.device):
         and device.index is None else device)
 
 
+def _spatial_mesh(cfg, n_devices: Optional[int], device: torch.device):
+    """The (data, points) mesh of ``cfg.spatial_mesh``: the initialised
+    process group's ranks (a world of one initialises its own)."""
+    if cfg.neighbor_regime != "windowed":
+        raise ValueError("spatial_mesh trains point-sharded, which needs "
+                         "the windowed neighbour regime")
+    d_data, d_pts = (int(v) for v in cfg.spatial_mesh)
+    n = d_data * d_pts
+    if n_devices is not None and n_devices != n:
+        raise ValueError(f"n_devices={n_devices}, but spatial_mesh "
+                         f"{tuple(cfg.spatial_mesh)} has {n} ranks")
+    if n > 1:
+        import torch.distributed as dist
+
+        if not dist.is_initialized():
+            raise RuntimeError(
+                f"spatial_mesh {tuple(cfg.spatial_mesh)} trains on {n} "
+                "processes: start them with crfconv_tpu_torch.parallel."
+                "launch or torchrun and initialise the group "
+                "(parallel.make_mesh) first")
+        world = _join_mesh(n, device)
+    else:
+        world = sharding.make_mesh(1, device=device)
+    return sharding.make_spatial_mesh(d_data, d_pts, world)
+
+
 def _batches(loader, mesh):
     """The loader's batches; under a data-parallel ``mesh`` the first one's
     shapes are checked equal on every rank (a loader draws batches of one
@@ -203,19 +241,22 @@ class Trainer:
         device="cuda",
         n_devices: Optional[int] = None,
     ):
-        if getattr(cfg, "spatial_mesh", None):
-            raise NotImplementedError(
-                "point-sharded training (cfg.spatial_mesh) is not ported to "
-                "the PyTorch package yet (ROADMAP.md, Queue 1, item 6)")
         if cfg.compute_dtype not in COMPUTE_DTYPES:
             raise ValueError(f"compute_dtype must be one of "
                              f"{sorted(COMPUTE_DTYPES)}, not "
                              f"{cfg.compute_dtype!r}")
         self.cfg = cfg
         self.device = torch.device(device)
-        self.mesh = None
-        if n_devices is not None and n_devices > 1:
-            self.mesh = _join_mesh(n_devices, self.device)
+        # self.world: every rank (None: one process); self.mesh: the ranks
+        # that split the data (None: this rank loads all of it)
+        self.world = self.mesh = self.spatial = None
+        windowed = cfg.neighbor_regime == "windowed"
+        if getattr(cfg, "spatial_mesh", None):
+            self.spatial = _spatial_mesh(cfg, n_devices, self.device)
+            self.world, self.mesh = self.spatial.world, self.spatial.data
+            self.device = self.world.device
+        elif n_devices is not None and n_devices > 1:
+            self.world = self.mesh = _join_mesh(n_devices, self.device)
             self.device = self.mesh.device
         self.dataset = dataset if dataset is not None else _build_dataset(cfg)
 
@@ -227,7 +268,6 @@ class Trainer:
         val_set = getattr(
             self.dataset, "val_set", getattr(self.dataset, "test_set", None)
         )
-        windowed = cfg.neighbor_regime == "windowed"
         loader_kw = dict(
             kernel_sizes=cfg.kernel_sizes,
             ratios=cfg.ratios,
@@ -284,8 +324,8 @@ class Trainer:
             weight_decay=cfg.weight_decay, gamma=cfg.gamma,
             steps_per_epoch=max(len(self.train_loader), 1),
         )
-        if self.mesh is not None:
-            sharding.replicate(self.state, self.mesh)
+        if self.world is not None:
+            sharding.replicate(self.state, self.world)
         self.mode = (
             NeighborMode("windowed", knn_exact=cfg.windowed_knn_exact)
             if windowed else NeighborMode("exact")
@@ -293,11 +333,15 @@ class Trainer:
         self._compute_dtype = COMPUTE_DTYPES[cfg.compute_dtype]
         cw = cfg.class_weights
         cw = None if cw is None else torch.as_tensor(cw, device=self.device)
-        self._train_step = self._scoped(self._parallel(make_train_step(
-            self.mode, cw, cfg.ignore_index, windowed=windowed,
-            label_offset=cfg.label_offset,
-            curve_jitter=windowed and getattr(cfg, "curve_jitter", False),
-        )))
+        if self.spatial is not None:
+            self._train_step = self._scoped(
+                self._make_spatial_mesh_step(cw, example))
+        else:
+            self._train_step = self._scoped(self._parallel(make_train_step(
+                self.mode, cw, cfg.ignore_index, windowed=windowed,
+                label_offset=cfg.label_offset,
+                curve_jitter=windowed and getattr(cfg, "curve_jitter", False),
+            )))
         self._eval_step = self._scoped(self._parallel(make_eval_step(
             self.mode, cw, cfg.ignore_index, label_offset=cfg.label_offset,
             windowed=windowed,
@@ -329,6 +373,38 @@ class Trainer:
 
         return wrapped
 
+    def _make_spatial_mesh_step(self, cw, example):
+        """The train step of a (data, points) mesh: a RawBatch in, its
+        Morton sort, this rank's span of the pyramid built point-sharded
+        (the offsets, then the dropout, from the step's generator), the
+        point-sharded step. The first batch is checked equal on every rank
+        of the point group."""
+        from crfconv_tpu_torch.parallel.spatial_build import pyramid_lengths
+        from crfconv_tpu_torch.parallel.spatial_train import (
+            build_windowed_batch_spatial, check_same_batch,
+            make_spatial_train_step,
+        )
+
+        cfg = self.cfg
+        n = int(example.x.shape[1])
+        step = make_spatial_train_step(
+            self.spatial, set(pyramid_lengths(n, cfg.ratios)), self.mode,
+            cw, cfg.ignore_index, cfg.label_offset)
+        checked = []
+
+        def spatial_step(state, raw, rng):
+            if not checked:
+                check_same_batch(raw, self.spatial)
+                checked.append(True)
+            batch = build_windowed_batch_spatial(
+                raw, self.spatial, rng, mode=self.mode,
+                kernel_sizes=cfg.kernel_sizes, ratios=cfg.ratios,
+                k_up=cfg.k_up,
+                curve_jitter=getattr(cfg, "curve_jitter", False))
+            return step(state, batch, rng)
+
+        return spatial_step
+
     def _parallel(self, step):
         """``step`` in its data-parallel form where the trainer has a
         mesh."""
@@ -338,11 +414,11 @@ class Trainer:
 
     def _global_flag(self, flag: bool) -> bool:
         """``flag`` raised on any rank (each rank's own, alone)."""
-        if self.mesh is None:
+        if self.world is None:
             return flag
         t = torch.tensor([int(flag)], device=sharding.comm_device(
-            self.mesh))
-        return bool(sharding.all_reduce_max(t, self.mesh)[0])
+            self.world))
+        return bool(sharding.all_reduce_max(t, self.world)[0])
 
     def _min_possibility(self) -> float:
         """The val sampler's least possibility: the smallest over the
@@ -358,13 +434,18 @@ class Trainer:
         """A checkpoint of the state with the sidecar of ``epoch``: written
         by rank 0 alone, the other ranks waiting until it is on disk."""
         aux = self._aux_state(epoch)
-        if self.mesh is None or self.mesh.rank == 0:
+        if self._writer():
             self.ckpt.save(self.state, step=self.state.step, metric=metric,
                            aux=aux)
-        if self.mesh is not None:
+        if self.world is not None:
             import torch.distributed as dist
 
-            dist.barrier(group=self.mesh.group)
+            dist.barrier(group=self.world.group)
+
+    def _writer(self) -> bool:
+        """Whether this rank writes the run's files (rank 0 of the
+        world)."""
+        return self.world is None or self.world.rank == 0
 
     def _vote_generator(self, vote_pass: int) -> torch.Generator:
         return torch.Generator(device=self.device).manual_seed(
@@ -587,7 +668,7 @@ class Trainer:
         cfg = self.cfg
         saving_path = saving_path or os.path.join(
             "results", cfg.dataset, "predictions")
-        writer = self.mesh is None or self.mesh.rank == 0
+        writer = self._writer()
         if writer:
             os.makedirs(saving_path, exist_ok=True)
         last_min, epoch = -0.5, 0

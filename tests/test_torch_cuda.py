@@ -58,6 +58,7 @@ import pytest
 import torch
 
 import test_torch_parallel_ranks as parallel_ranks
+import test_torch_spatial_ranks as spatial_ranks
 from crfconv_tpu_torch import cuda_build
 from crfconv_tpu_torch.ops import (
     conv, crf_core, crf_sim, discrete_core, neighbors, windowed,
@@ -1842,3 +1843,133 @@ def test_dp_two_gloo_ranks_share_the_card(dev, tmp_path):
                    else dict(rtol=1e-3, atol=1e-5))
             np.testing.assert_allclose(r0["states"][i][k], ref.numpy(),
                                        err_msg=k, **tol)
+
+
+def _spatial_forward_spec(n: int, seed: int) -> dict:
+    """A narrow flagship (steps 2) and a B1 x ``n`` windowed pyramid on the
+    host, for the point-sharded forward."""
+    from crfconv_tpu_torch import PointConvResNet
+
+    rng = np.random.default_rng(seed)
+    kw = dict(n_classes=5, in_channels=6, use_crf=True, steps=2,
+              layers=DP_NARROW)
+    model = PointConvResNet(device="cpu",
+                            generator=torch.Generator().manual_seed(seed),
+                            **kw)
+    pos = rng.random((1, n, 3), dtype=np.float32)
+    order, scales = windowed.build_pyramid_windowed(
+        pos, generator=torch.Generator().manual_seed(seed), device="cpu")
+    x = np.take_along_axis(rng.random((1, n, 6), dtype=np.float32),
+                           order.numpy()[..., None], 1)
+    return {"kind": "forward", "model": "PointConvResNet", "model_kw": kw,
+            "state": {k: v.numpy() for k, v in model.state_dict().items()},
+            "batch": {"x": x, "scales": [[t.numpy() for t in s]
+                                         for s in scales]}}
+
+
+def test_spatial_world_of_one_nccl_forward_is_the_unsharded(dev):
+    """The point-sharded forward over an nccl point group of one rank
+    (zero halos, every frame of at least one halo sharded) against the
+    unsharded forward at B1 x 16384: atol 2e-5, the same kernels
+    launched (K1-K5, K9, K10; on extended frames, so not as often)."""
+    from crfconv_tpu_torch.parallel import (
+        close_mesh, make_mesh, make_spatial_forward, shard_points,
+    )
+
+    spec = _spatial_forward_spec(16384, 5)
+    model = spatial_ranks._model(spec, dev)
+    batch = spatial_ranks.make_batch(spec["batch"], dev)
+    mode = neighbors.NeighborMode("windowed")
+    model.eval()
+    with torch.no_grad():
+        cuda_build.reset_launch_counts()
+        ref = model(batch, mode)
+        torch.cuda.synchronize()
+        plain = {k: v for k, v in cuda_build.launch_counts().items() if v}
+    mesh = make_mesh(1, backend="nccl", device=dev)
+    try:
+        fn, info = make_spatial_forward(model, mesh, batch, mode)
+        assert info["sharded_scales"] == [16384, 4096, 1024]
+        cuda_build.reset_launch_counts()
+        got = fn(shard_points(batch, mesh, set(info["sharded_scales"])))
+        torch.cuda.synchronize()
+        sharded = {k: v for k, v in cuda_build.launch_counts().items() if v}
+    finally:
+        close_mesh(mesh)
+    assert set(sharded) == set(plain)
+    assert {"windowed_gather", "point_conv_fused_infer",
+            "crf_similarity_message"} <= set(plain)
+    torch.testing.assert_close(got, ref, rtol=0, atol=2e-5)
+
+
+def test_spatial_exchange_and_gather_on_the_card(dev, tmp_path):
+    """exchange_halo and the replicated all-gather on CUDA tensors, forward
+    and backward: two gloo ranks sharing cuda:0 (the rows pass through the
+    host), against their global forms; and an nccl group of one (zero
+    halos, the whole as it is)."""
+    from crfconv_tpu_torch.parallel import (
+        close_mesh, exchange_halo, launch, make_mesh,
+    )
+    from crfconv_tpu_torch.parallel.spatial_forward import (
+        _all_gather_replicated,
+    )
+
+    x = np.arange(2 * 8 * 3, dtype=np.float32).reshape(2, 8, 3)
+    h, n = 2, 4
+    rs = launch(spatial_ranks.run_scenarios, 2, ["cuda:0", "cuda:0"], "gloo",
+                args=({"e": {"kind": "exchange", "x": x, "h": h},
+                       "g": {"kind": "gather", "x": x}},),
+                init_method=f"file://{tmp_path}/pg", timeout_s=300)
+    pad = np.pad(x, ((0, 0), (h, h), (0, 0)))
+    grad = np.zeros_like(x)
+    w = np.arange(2 * (n + 2 * h) * 3, dtype=np.float32).reshape(
+        2, n + 2 * h, 3)
+    for p in range(2):
+        for i in range(n + 2 * h):
+            if 0 <= p * n - h + i < 2 * n:
+                grad[:, p * n - h + i] += w[:, i]
+    wg = sum(np.arange(x.size, dtype=np.float32).reshape(x.shape) * (1 + p)
+             for p in range(2))
+    for p, r in enumerate(rs):
+        e = r["e"]
+        np.testing.assert_array_equal(e["ext"], pad[:, p * n:p * n + n + 2 * h])
+        np.testing.assert_array_equal(e["grad"], grad[:, p * n:(p + 1) * n])
+        np.testing.assert_array_equal(e["gathered"], x)
+        np.testing.assert_array_equal(e["gather_grad"],
+                                      wg[:, p * n:(p + 1) * n])
+        np.testing.assert_array_equal(r["g"], x)
+
+    mesh = make_mesh(1, backend="nccl", device=dev)
+    try:
+        t = torch.as_tensor(x, device=dev).requires_grad_(True)
+        e = exchange_halo(t, h, mesh)
+        torch.testing.assert_close(e, torch.as_tensor(pad, device=dev))
+        e.sum().backward()
+        torch.testing.assert_close(t.grad, torch.ones_like(t))
+        t.grad = None
+        g = _all_gather_replicated(t, mesh)
+        (2 * g).sum().backward()
+        torch.testing.assert_close(g, t.detach())
+        torch.testing.assert_close(t.grad, torch.full_like(t, 2.0))
+    finally:
+        close_mesh(mesh)
+
+
+def test_spatial_two_gloo_ranks_forward_on_the_card(dev, tmp_path):
+    """Two gloo ranks sharing cuda:0 serve a B1 x 8192 narrow flagship
+    point-sharded (scales 8192 and 2048): their rows put together are the
+    unsharded forward's on the card within the fused kernels' tolerance
+    (K3, K4 on the halo-extended frames, rtol 1e-4, atol 1e-5)."""
+    from crfconv_tpu_torch.parallel import launch
+
+    spec = _spatial_forward_spec(8192, 6)
+    rs = launch(spatial_ranks.run_scenarios, 2, ["cuda:0", "cuda:0"], "gloo",
+                args=({"f": spec},), init_method=f"file://{tmp_path}/pg",
+                timeout_s=300)
+    model = spatial_ranks._model(spec, dev).eval()
+    with torch.no_grad():
+        ref = model(spatial_ranks.make_batch(spec["batch"], dev),
+                    neighbors.NeighborMode("windowed")).cpu().numpy()
+    assert rs[0]["f"]["sharded"] == [8192, 2048]
+    got = np.concatenate([r["f"]["out"] for r in rs], axis=1)
+    np.testing.assert_allclose(got, ref, rtol=1e-4, atol=1e-5)

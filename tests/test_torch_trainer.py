@@ -371,12 +371,13 @@ class TestDeviceScope:
         assert get_compute_dtype() is None
 
     def test_mesh_options_raise(self, s3dis_root, tmp_path):
-        # n_devices > 1 trains data-parallel over an initialised process
-        # group; without one it raises
+        # n_devices > 1 trains data-parallel, and spatial_mesh (2, 2)
+        # point-sharded on 4 ranks, over an initialised process group;
+        # without one each raises
         with pytest.raises(RuntimeError, match="n_devices"):
             Trainer(_cfg(S3DISConfig, s3dis_root, tmp_path), device="cpu",
                     n_devices=2)
-        with pytest.raises(NotImplementedError, match="spatial_mesh"):
+        with pytest.raises(RuntimeError, match="spatial_mesh"):
             _trainer(s3dis_root, tmp_path, spatial_mesh=(2, 2))
 
 
