@@ -35,6 +35,9 @@ HEADERS = ("window.cuh", "crf_rows.cuh", "point_conv.cuh", "tile_inverse.cuh",
            "crf_transpose.cuh", "warp_select.cuh", "cp_async.cuh")
 
 NOTHING_LAUNCHED = -1   # an entry point's code for an empty problem
+# every launch of every kernel, never reset (``utils.profiling``'s spans
+# count the launches made while they are open by its difference)
+_launched = 0
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 
@@ -100,12 +103,14 @@ class Kernel:
         self._fn = fn
 
     def _count(self, rc: int, symbol: str) -> None:
+        global _launched
         if rc == NOTHING_LAUNCHED:
             return
         if rc != 0:
             raise RuntimeError(f"{self.name}: CUDA error {rc} at launch of "
                                f"{symbol}")
         self.launches += 1
+        _launched += 1
 
     def __call__(self, *args) -> None:
         if self._fn is None:
@@ -231,3 +236,8 @@ def reset_launch_counts() -> None:
 
 def launch_counts() -> dict:
     return {k.name: k.launches for k in KERNELS}
+
+
+def total_launches() -> int:
+    """Every kernel's launches since the process started."""
+    return _launched

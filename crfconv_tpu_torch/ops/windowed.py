@@ -29,6 +29,7 @@ from crfconv_tpu_torch.ops._launch import (
     stream,
 )
 from crfconv_tpu_torch.ops.morton import morton_order
+from crfconv_tpu_torch.utils import profiling
 
 # K1's, K2's and K8's arguments, packed as int64s (cuda_build)
 _pack13 = struct.Struct("13q").pack
@@ -559,33 +560,34 @@ def build_pyramid_windowed(
     Returns (order, scales): ``order`` [B, N] int64 is the Morton
     permutation to apply to features (pos is already sorted).
     """
-    pos = torch.as_tensor(pos, dtype=torch.float32, device=device)
-    if offsets is None and generator is None:
-        generator = torch.Generator(device=pos.device).manual_seed(0)
-    order = morton_order(pos, rot=curve_rot)
-    pos = torch.take_along_dim(pos, order[..., None], dim=1)
+    with profiling.span("pyramid"):
+        pos = torch.as_tensor(pos, dtype=torch.float32, device=device)
+        if offsets is None and generator is None:
+            generator = torch.Generator(device=pos.device).manual_seed(0)
+        order = morton_order(pos, rot=curve_rot)
+        pos = torch.take_along_dim(pos, order[..., None], dim=1)
 
-    scales = []
-    for s, (k, r) in enumerate(zip(kernel_sizes, ratios)):
-        n = pos.shape[1]
-        neighbor_idx = window_knn_auto(pos, min(k, n), None, tile, pad,
-                                       knn_exact)
-        sample_num = max(n // r, 1)
-        if offsets is not None:
-            off = offsets[s]
-            if isinstance(off, np.ndarray):   # may be a read-only view
-                off = off.copy()
-            off = torch.as_tensor(off)
-        else:
-            off = torch.randint(
-                0, r, (sample_num,), generator=generator,
-                device=generator.device,
-            )
-        choice = torch.arange(sample_num, device=pos.device) * r
-        choice = torch.clamp(choice + off.to(pos.device).long(), max=n - 1)
-        sub_pos = pos[:, choice].contiguous()
-        sub_idx = neighbor_idx[:, choice].contiguous()
-        up_idx = window_knn_auto(sub_pos, k_up, pos, tile, pad, knn_exact)
-        scales.append(ScaleData(pos, neighbor_idx, sub_idx, up_idx))
-        pos = sub_pos
-    return order, tuple(scales)
+        scales = []
+        for s, (k, r) in enumerate(zip(kernel_sizes, ratios)):
+            n = pos.shape[1]
+            neighbor_idx = window_knn_auto(pos, min(k, n), None, tile, pad,
+                                           knn_exact)
+            sample_num = max(n // r, 1)
+            if offsets is not None:
+                off = offsets[s]
+                if isinstance(off, np.ndarray):   # may be a read-only view
+                    off = off.copy()
+                off = torch.as_tensor(off)
+            else:
+                off = torch.randint(
+                    0, r, (sample_num,), generator=generator,
+                    device=generator.device,
+                )
+            choice = torch.arange(sample_num, device=pos.device) * r
+            choice = torch.clamp(choice + off.to(pos.device).long(), max=n - 1)
+            sub_pos = pos[:, choice].contiguous()
+            sub_idx = neighbor_idx[:, choice].contiguous()
+            up_idx = window_knn_auto(sub_pos, k_up, pos, tile, pad, knn_exact)
+            scales.append(ScaleData(pos, neighbor_idx, sub_idx, up_idx))
+            pos = sub_pos
+        return order, tuple(scales)

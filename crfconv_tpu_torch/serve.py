@@ -19,6 +19,7 @@ import torch
 from crfconv_tpu_torch.data.batch import PointBatch
 from crfconv_tpu_torch.ops.neighbors import NeighborMode
 from crfconv_tpu_torch.ops.windowed import build_pyramid_windowed
+from crfconv_tpu_torch.utils import profiling
 
 # The serving regime: windowed, packed-key kNN selection.
 SERVING_MODE = NeighborMode("windowed", knn_exact=False)
@@ -70,8 +71,11 @@ class Predictor:
         Morton permutation). ``offsets`` injects the per-scale subsampling
         offsets instead of drawing them; ``category`` ([B] object
         categories) rides in the batch for ``CRFSegNet_Part``."""
-        pos = torch.as_tensor(pos, dtype=torch.float32, device=self.device)
-        feats = torch.as_tensor(feats, dtype=torch.float32, device=self.device)
+        with profiling.span("serve.copy_in"):
+            pos = torch.as_tensor(pos, dtype=torch.float32,
+                                  device=self.device)
+            feats = torch.as_tensor(feats, dtype=torch.float32,
+                                    device=self.device)
         gen = None
         if offsets is None:
             gen = torch.Generator(device=self.device).manual_seed(self.seed)
@@ -91,8 +95,9 @@ class Predictor:
         """Per-point rows [B, N, ...] in Morton order -> the input order.
         Sorted row i is input row order[b, i]; argsort(order) maps input
         row j back to its sorted position."""
-        inv = torch.argsort(order, dim=1)
-        return torch.take_along_dim(out, inv[..., None], dim=1)
+        with profiling.span("serve.restore"):
+            inv = torch.argsort(order, dim=1)
+            return torch.take_along_dim(out, inv[..., None], dim=1)
 
     @torch.inference_mode()
     def predict_logits(
@@ -104,8 +109,11 @@ class Predictor:
         :meth:`prepare`."""
         if self.mesh is not None:
             return self._predict_spatial(pos, feats, offsets, category)
-        batch, order = self.prepare(pos, feats, offsets, category)
-        return self.restore(self.model(batch, self.mode), order)
+        with profiling.span("serve.request"):
+            batch, order = self.prepare(pos, feats, offsets, category)
+            with profiling.span("forward"):
+                out = self.model(batch, self.mode)
+            return self.restore(out, order)
 
     def prepare_spatial(
         self, pos, feats, offsets: Optional[Sequence] = None, category=None,

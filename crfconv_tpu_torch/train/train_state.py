@@ -41,6 +41,7 @@ from crfconv_tpu_torch.train.losses import (
     segmentation_loss, segmentation_loss_parts,
 )
 from crfconv_tpu_torch.train.metrics import confusion_matrix_device
+from crfconv_tpu_torch.utils import profiling
 
 # The training regime of the reference bench (bench.py::measure_train):
 # windowed, packed-key kNN selection.
@@ -203,38 +204,48 @@ def make_train_step(
         is on, the pyramid's subsampling offsets, unless ``offsets`` gives
         them, and then the dropout mask. Returns the loss and the [C, C]
         confusion matrix, left on the device."""
+        with profiling.span("train.step"):
+            return _train_step(state, batch, generator, offsets)
+
+    def _train_step(state, batch, generator, offsets) -> dict:
         model = state.model
         model.train()
         if windowed:
             batch = build_windowed_batch(batch, generator, offsets, mode,
                                          curve_jitter=curve_jitter)
         labels = batch.y - label_offset
-        outputs = model(batch, mode, dropout_generator=generator)
+        with profiling.span("forward"):
+            outputs = model(batch, mode, dropout_generator=generator)
         mesh = spatial_state.data_mesh()
-        if mesh is None:
-            loss = segmentation_loss(outputs, labels, class_weights,
-                                     ignore_index)
-        else:
-            # this rank's part of the global loss: the ranks' parts sum to
-            # it, and so do their gradients
-            num, den = segmentation_loss_parts(outputs, labels,
-                                               class_weights, ignore_index)
-            loss = num / all_reduce_sum(den, mesh).clamp_min(1e-12)
-        state.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        if mesh is not None:
-            all_reduce_gradients(model.parameters(), mesh)
-        state.optimizer.step()
-        state.scheduler.step()
+        with profiling.span("train.loss"):
+            if mesh is None:
+                loss = segmentation_loss(outputs, labels, class_weights,
+                                         ignore_index)
+            else:
+                # this rank's part of the global loss: the ranks' parts sum
+                # to it, and so do their gradients
+                num, den = segmentation_loss_parts(
+                    outputs, labels, class_weights, ignore_index)
+                loss = num / all_reduce_sum(den, mesh).clamp_min(1e-12)
+        with profiling.span("train.backward"):
+            state.optimizer.zero_grad(set_to_none=True)
+            loss.backward()
+            if mesh is not None:
+                all_reduce_gradients(model.parameters(), mesh)
+        with profiling.span("train.optimizer"):
+            state.optimizer.step()
+            state.scheduler.step()
         state.step += 1
-        primary = _head(outputs, 0).detach()
-        confusion = confusion_matrix_device(
-            labels, primary.argmax(dim=-1), primary.shape[-1], ignore_index
-        )
-        loss = loss.detach()
-        if mesh is not None:
-            loss = all_reduce_sum(loss, mesh)
-            confusion = all_reduce_sum(confusion, mesh)
+        with profiling.span("train.metrics"):
+            primary = _head(outputs, 0).detach()
+            confusion = confusion_matrix_device(
+                labels, primary.argmax(dim=-1), primary.shape[-1],
+                ignore_index
+            )
+            loss = loss.detach()
+            if mesh is not None:
+                loss = all_reduce_sum(loss, mesh)
+                confusion = all_reduce_sum(confusion, mesh)
         return {"loss": loss, "confusion": confusion}
 
     return train_step
