@@ -36,8 +36,11 @@
    step; times the step and its phases and profiles one step.
 8. From one state, one pyramid and one dropout seed, takes a step with the
    kernels and one through the plain versions, differentiated by autograd
-   (not through the port's autograd Functions), and compares loss,
-   gradients, parameters and running statistics.
+   (not through the port's autograd Functions), K16 in both, and compares
+   loss, gradients, parameters and running statistics; then the same step
+   with every kernel off (PyTorch's batch norm too) and in float64, each
+   float32 step's gradients against float64's (K16's median relative
+   error within 10 times PyTorch's batch norm's, the losses within 1e-5).
 9. One eval step, a checkpoint saved and restored into a fresh state, and
    the same eval step on it: the probabilities must be identical.
 10. ScanNet (ScanNetConfig: CRFSegNet(20 classes, steps=10), B16 x 8192,
@@ -84,7 +87,10 @@
     use_crf, steps=1), B16 x 65536): a recorded warm-up request whose K1-K5
     calls are held against the plain versions; SEMANTIC3D_REQUESTS requests
     through Predictor with exact launch counts (K5 on conv2_1 and
-    conv3_1); a kernel-vs-plain forward; a profile and peak memory.
+    conv3_1, K16 58 applies); a kernel-vs-plain forward; K16 held on the
+    forward's calls against its plain versions, eval (58 applies) and in
+    train mode (70 batch norms: statistics, apply, backward), each timed
+    beside its bytes' bound; a profile and peak memory.
 16. Flagship exact serving (the exact neighbour regime, B8 x 8192): a
     recorded warm-up request (build_pyramid_device, then the forward in
     NeighborMode("exact")) whose K6 calls are held bit-equal against the
@@ -94,8 +100,9 @@
     request, pyramid and forward times, a profile and peak memory.
 17. Flagship exact train step on a pyramid built once: TRAIN_STEPS steps of
     make_train_step(NeighborMode("exact"), windowed=False), no kernel
-    launched but the leaky ReLU's backward, a finite loss, every parameter
-    moved; step time, phases, train points/s; one exact eval step.
+    launched but the leaky ReLU's backward (10) and K16 (70 batch norms), a
+    finite loss, every parameter moved; step time, phases, train points/s;
+    one exact eval step (K16's 70 applies its only launches).
 18. Windowed 2-view eval (make_eval_step(eval_views=2), B8 x 8192): K1's
     phase on one eval's recorded calls, launch counts per eval (K1 30, K2
     20, K3 4, K4 2), probabilities finite and normalised, and against the
@@ -132,14 +139,15 @@
     CRFs' scans in plain PyTorch; as in 19.
 25. ScanNet exact training: each step builds its pyramid (K6 10 launches)
     and trains on it (the scans differentiated by autograd, the leaky
-    ReLU's backward 41 launches); K6 and the leaky ReLU's backward held on
-    a recorded step; TRAIN_STEPS steps checked as in 12, peak memory; a
-    step with the kernels against one with K6 and the leaky ReLU's
-    backward plain, and a rerun (autograd's gather backward adds with
+    ReLU's backward 14 launches, K16 56 batch norms); K6 and the leaky
+    ReLU's backward held on a recorded step; TRAIN_STEPS steps checked as
+    in 12, peak memory; a step with the kernels against one with K6, the
+    leaky ReLU's backward and the batch norms plain, and a rerun
+    (autograd's gather backward adds with
     atomics: gradients held to their tolerance, bit-identity reported).
 26. ScanNet-discrete exact training (BaselineDiscreteCRFSegNet(20 classes,
     steps=10), B16 x 8192), as in 25 (K6 11 launches a step with the CRF's
-    kNN(32), the leaky ReLU's backward 37).
+    kNN(32), the leaky ReLU's backward 10, K16 52 batch norms).
 27. S3DIS training fed by the data layer: three rooms of 120,000 points
     written as S3DIS's raw files in a temporary directory (a storage room
     small enough that its crops are padded with duplicate points),
@@ -150,8 +158,9 @@
     recorded step whose K1, K2, K7, K8 and leaky-ReLU backward calls are
     held against their plain versions (K2 bit-equal); LOADER_STEPS (10)
     loader-fed steps with exact launch counts (K1 18, K2 10, K7 2, K8 18,
-    K15 47), a finite loss and every parameter moved; the step's event ms fed
-    by the loader against the same batches placed on the card beforehand
+    K15 10, K16 70 batch norms), a finite loss and every parameter moved;
+    the step's event ms fed by the loader against the same batches placed
+    on the card beforehand
     (fed, placed, placed, fed); a profiled loader-fed step and peak memory;
     a loader without prefetch, restored to the first one's starting state,
     gives every batch bit for bit; the loader's host ms a batch and its
@@ -164,18 +173,18 @@
     to CRFSegNet_Part(50 classes, steps=10) in the exact regime at B8 x
     2048 with the category a cloud: the pyramid's column 0 self on every
     row, every index in range, neighbours outside the plain kNN(k) only at
-    the dilated scales; the leaky ReLU's backward, the path's one kernel,
-    held on a recorded step and counted exactly (41 a step); the steps as
-    in 27; build_pyramid's host ms.
+    the dilated scales; the leaky ReLU's backward held on a recorded step
+    and counted exactly (14 a step, beside K16's 56 batch norms, the path's
+    only other kernel); the steps as in 27; build_pyramid's host ms.
 
 29. S3DIS through the experiment driver: ``main([...])`` of
     crfconv_tpu_torch.train.__main__ in this process, on the rooms of 27
     (Area_5 the val area), S3DISConfig's full-width flagship (use_crf,
     steps=1) at B8 x 8192, windowed with packed kNN, the 2-view val: two
     epochs of 5 steps and 2 val batches (launch counts set to 0 before the
-    run and read after: K1 18, K2 10, K7 2, K8 18, K15 47 a step and K1 30,
-    K2 20, K3 4, K4 2 a val batch, each val batch's also checked as it
-    runs); every kernel call of a
+    run and read after: K1 18, K2 10, K7 2, K8 18, K15 10, K16 70 a step
+    and K1 30, K2 20, K3 4, K4 2, K16 132 a val batch, each val batch's
+    also checked as it runs); every kernel call of a
     recorded step and val batch held against its plain version; finite
     losses, each val confusion summing to its labelled points, the latest
     and best checkpoints and their sidecars written; a second Trainer
@@ -200,7 +209,9 @@
 31. The bf16 compute mode: the full-width flagship at B8 x 8192, a request
     through Predictor and a train step under
     compute_dtype_scope(torch.bfloat16) and in float32 from the same
-    weights and seeds: the same launch counts, every kernel call of the
+    weights and seeds: the same launch counts outside the batch norms
+    (bfloat16 keeps them on PyTorch's ops: no K16, K15 47), every kernel
+    call of the
     bf16 request and step held against its plain version on the float32
     inputs the wrapper widens it to (and the wrapper's result that one
     rounded), the median |logit| difference below 0.1, the loss float32
@@ -212,7 +223,8 @@
     temporary directory) with S3DISConfig's full-width flagship through
     --scale-kw (use_crf, steps 1, B8 x 8192, windowed, 2-view val): 2
     epochs of 3 steps and 2 val batches, patience 1, 2 votes. The port arm
-    (the Trainer) launches exactly K1 18, K2 10, K7 2, K8 18, K15 47 a step
+    (the Trainer) launches exactly K1 18, K2 10, K7 2, K8 18, K15 10,
+    K16 70 a step
     and K1 30, K2 20, K3 4, K4 2 a val or vote batch (counts set to 0
     before the run and read after; the oracle arm launches none); its
     recorded step and val batch held against the plain versions; the
@@ -233,7 +245,8 @@
     each on half of B8 x 8192: DP_STEPS flagship steps (dropout 0.5)
     against the one-process steps on the whole batches (loss rtol 1e-5,
     states at the train-step tolerances, the ranks bit-equal after every
-    step), launches exact a rank-step (K1 18, K2 10, K7 2, K8 18, K15 47),
+    step), launches exact a rank-step (K1 18, K2 10, K7 2, K8 18, K15 47;
+    the batch norms take the global statistics on PyTorch's ops, no K16),
     every kernel call of a rank's first step held against its plain
     version; each rank's step ms (events), its all-reduces' ms, bytes and
     calls a step (the gradients' bucket, the batch norms' statistics, the
@@ -296,6 +309,23 @@ DEVICE = "cuda:0"
 PEAK_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
 PEAK_F32_OPS_PER_S = 67e12     # H100 SXM float32, outside the tensor cores
 PROFILE_REPS = 5    # runs of a phase profiled together, its device ms / 5
+
+
+def bn_eval(n: int) -> dict:
+    """K16's launches for ``n`` eval batch norms: one apply each."""
+    return {"batch_norm_apply": n}
+
+
+def bn_train(n: int) -> dict:
+    """K16's launches for ``n`` train batch norms: the statistics, the apply
+    and the backward, one launch each."""
+    return {"batch_norm_stats": n, "batch_norm_apply": n, "batch_norm_bwd": n}
+
+
+# batch norms of a forward: the flagship's 70 (2 fold into each K3/K5 call
+# in eval), CRFSegNet's (and CRFSegNet_Part's) 56, the discrete net's 52; a
+# leaky ReLU after a batch norm runs in K16, the others launch K15
+FLAGSHIP_BN, CRF_NET_BN, DISCRETE_BN = 70, 56, 52
 # launches of each kernel per B8 x 8192 request (pyramid + forward)
 EXPECTED_PER_REQUEST = {
     "windowed_gather": 15,
@@ -307,12 +337,15 @@ EXPECTED_PER_REQUEST = {
     "crf_iterate": 0,
     "select_min_k": 0,        # the exact regime only
     "leaky_relu_bwd": 0,      # the backward only
+    **bn_eval(FLAGSHIP_BN - 2 * 2),     # the 2 K3 calls fold 4
 }
 # launches of each kernel per B8 x 8192 train step (pyramid, forward,
 # backward): K8 is the backward of every K1 gather whose source needs a
-# gradient (all but the two gathers of pos) and of both K7 calls; the
-# leaky ReLU's backward runs once per activation (47, counted in the
-# model's code)
+# gradient (all but the two gathers of pos) and of both K7 calls; every
+# batch norm and the leaky ReLU after it run in K16, and the leaky ReLU's
+# backward runs once for each of the 10 activations after a residual add
+# (47 activations in all; counted on a CPU step by
+# tests/test_torch_chip_smoke_checks.py under the card's dispatch)
 EXPECTED_PER_STEP = {
     "windowed_gather": 18,
     "window_knn": 10,
@@ -325,10 +358,15 @@ EXPECTED_PER_STEP = {
     "crf_iterate_bwd": 0,
     "crf_neighbor_dot": 0,
     "select_min_k": 0,        # the exact regime only
-    "leaky_relu_bwd": 47,
+    "leaky_relu_bwd": 10,
+    **bn_train(FLAGSHIP_BN),
 }
-# the flagship's activations per train step, in either regime
-FLAGSHIP_LEAKY_PER_STEP = EXPECTED_PER_STEP["leaky_relu_bwd"]
+# the flagship's K15 and K16 launches per train step, in either regime
+FLAGSHIP_NORM_ACT_PER_STEP = {"leaky_relu_bwd": 10, **bn_train(FLAGSHIP_BN)}
+# per flagship step whose batch norms keep PyTorch's ops (under a
+# data-parallel mesh of more than one rank, which takes the global
+# statistics, or in bfloat16): no K16, and K15 once per activation
+TORCH_NORM_PER_STEP = {"leaky_relu_bwd": 47, **bn_train(0)}
 SCANNET_REQUESTS = 3
 # launches per B16 x 8192 ScanNet request with CRFSegNet(steps=10): K1 is
 # the encoder's 10 gathers of [pos, h], 2 per k-NN interpolation (features
@@ -348,18 +386,21 @@ SCANNET_PER_REQUEST = {
     "crf_neighbor_dot": 0,
     "select_min_k": 0,
     "leaky_relu_bwd": 0,
+    **bn_eval(CRF_NET_BN),
 }
 # per ScanNet train step: the forward's, and in the backward K8 for every
 # gather whose source needs a gradient (not the 4 + 4 gathers of
 # positions), per core one build of the transpose's structure and 10
-# reverse steps (K11) and one neighbour dot (K12), and one leaky-ReLU
-# backward per activation
+# reverse steps (K11) and one neighbour dot (K12), K16 for every batch
+# norm, and one leaky-ReLU backward per activation after no batch norm
+# (14 of 41)
 SCANNET_PER_STEP = {
     **SCANNET_PER_REQUEST,
     "windowed_gather_bwd": 10 + 4 + 4,
     "crf_iterate_bwd": 4 * (1 + 10),
     "crf_neighbor_dot": 4,
-    "leaky_relu_bwd": 41,
+    "leaky_relu_bwd": 14,
+    **bn_train(CRF_NET_BN),
 }
 # calls of each wrapper per ScanNet step: K11's reverse steps alone (its
 # plan is built outside the wrapper)
@@ -387,18 +428,20 @@ DISCRETE_PER_REQUEST = {
     "discrete_iterate_bwd": 0,
     "select_min_k": 0,        # the exact regime only
     "leaky_relu_bwd": 0,
+    **bn_eval(DISCRETE_BN),
 }
 # per ScanNet-discrete train step: the forward's, and in the backward K8 for
 # every gather whose source needs a gradient (not the 4 + 1 of positions),
 # one build of the plan (S~^T by rows) and one launch of K14 for the 10
-# reverse steps, one neighbour dot (K12) and one leaky-ReLU backward per
-# activation
+# reverse steps, one neighbour dot (K12), K16 for every batch norm and one
+# leaky-ReLU backward per activation after no batch norm (10 of 37)
 DISCRETE_PER_STEP = {
     **DISCRETE_PER_REQUEST,
     "windowed_gather_bwd": 10 + 4 + 1,
     "discrete_iterate_bwd": 1 + 1,
     "crf_neighbor_dot": 1,
-    "leaky_relu_bwd": 37,
+    "leaky_relu_bwd": 10,
+    **bn_train(DISCRETE_BN),
 }
 # calls of each wrapper per discrete step: K14's alone (its plan is built
 # outside the wrapper)
@@ -408,13 +451,16 @@ EXACT = None    # NeighborMode("exact"), set in main() after the import check
 CARD = ""       # the card's name and power limit (nvidia-smi), set in main()
 # launches per exact-regime request: K6 selects every kNN of the pyramid (a
 # same-scale and an upsample search per scale), plus the discrete CRF's
-# kNN(32); no other kernel runs in the exact regime (its gathers are plain
-# index gathers, its CRFs the scans)
-EXACT_PER_REQUEST = {"select_min_k": 10}
-DISCRETE_EXACT_PER_REQUEST = {"select_min_k": 11}
+# kNN(32), and K16 applies every batch norm (no conv folds one); no other
+# kernel runs in the exact regime (its gathers are plain index gathers,
+# its CRFs the scans)
+EXACT_PER_REQUEST = {"select_min_k": 10, **bn_eval(FLAGSHIP_BN)}
+SCANNET_EXACT_PER_REQUEST = {"select_min_k": 10, **bn_eval(CRF_NET_BN)}
+DISCRETE_EXACT_PER_REQUEST = {"select_min_k": 11, **bn_eval(DISCRETE_BN)}
 # per windowed 2-view eval: twice a flagship request's launches
 TWO_VIEW_PER_EVAL = {"windowed_gather": 30, "window_knn": 20,
-                     "point_conv_fused_infer": 4, "crf_similarity_message": 2}
+                     "point_conv_fused_infer": 4, "crf_similarity_message": 2,
+                     **bn_eval(2 * (FLAGSHIP_BN - 2 * 2))}
 SEMANTIC3D_REQUESTS = 3
 # launches per B16 x 65536 Semantic3D request: every eval PointConv with at
 # least 4096 output rows and hidden width <= 32 runs fused, the same-scale
@@ -436,6 +482,7 @@ SEMANTIC3D_PER_REQUEST = {
     "discrete_iterate": 0,
     "select_min_k": 0,        # the exact regime only
     "leaky_relu_bwd": 0,
+    **bn_eval(FLAGSHIP_BN - 2 * 6),     # the 6 K3/K5 calls fold 12
 }
 # ShapeNet's CRFSegNet_Part is the small family's CRF net with a wider
 # classifier: a B16 x 2048 request launches what a ScanNet request does (its
@@ -451,10 +498,13 @@ SHAPENET_TRAIN_BATCH = 8     # config_bench.py's micro: ShapeNet trains at B8
 # 4 K7 calls
 KITTI_PER_STEP = {**EXPECTED_PER_STEP, "windowed_weighted_reduce": 4}
 # per exact-regime train step, its pyramid built in the step: K6 selects the
-# pyramid's 10 kNNs (and the discrete CRF's kNN(32)); the leaky ReLU's
-# backward runs once per activation; the CRFs are the scans, plain PyTorch
-SCANNET_EXACT_PER_STEP = {"select_min_k": 10, "leaky_relu_bwd": 41}
-DISCRETE_EXACT_PER_STEP = {"select_min_k": 11, "leaky_relu_bwd": 37}
+# pyramid's 10 kNNs (and the discrete CRF's kNN(32)); K16 runs every batch
+# norm and the leaky ReLU's backward once per activation after no batch
+# norm; the CRFs are the scans, plain PyTorch
+SCANNET_EXACT_PER_STEP = {"select_min_k": 10, "leaky_relu_bwd": 14,
+                          **bn_train(CRF_NET_BN)}
+DISCRETE_EXACT_PER_STEP = {"select_min_k": 11, "leaky_relu_bwd": 10,
+                           **bn_train(DISCRETE_BN)}
 REPLACES = {
     "windowed_gather": "crfconv_tpu/ops/windowed_pallas.py:448",
     "window_knn": "crfconv_tpu/ops/windowed_pallas.py:684",
@@ -472,6 +522,10 @@ REPLACES = {
     "select_min_k": "crfconv_tpu/ops/windowed_pallas.py:285",
     # flax's leaky-ReLU gradient at 0 in one launch; no TPU kernel
     "leaky_relu_bwd": None,
+    # K16, the MLPs' batch norm and leaky ReLU; no TPU kernel (XLA's fusion)
+    "batch_norm_stats": None,
+    "batch_norm_apply": None,
+    "batch_norm_bwd": None,
 }
 
 
@@ -602,6 +656,54 @@ def leaky_plain_pair():
     from crfconv_tpu_torch.ops import activation
 
     return (activation, "leaky_relu_bwd", activation.leaky_relu_bwd_plain)
+
+
+def bn_plain_pair():
+    """K16 off: every batch norm takes MaskedBatchNorm's PyTorch ops,
+    differentiated by autograd, and its leaky ReLU the activation's own
+    path (K15, or its plain version beside leaky_plain_pair()).
+
+    The kernel-vs-plain steps of each path keep K16 in both arms, so that
+    their forwards stay bit-equal and grad_gap's tolerance (1e-4 of a
+    tensor's largest gradient) holds the other kernels: a step through
+    PyTorch's batch norm rounds its statistics and its backward apart from
+    K16's, and the gradients that float32 resolves least (a batch norm's
+    backward subtracts the column means of g') then differ by tens of that
+    tolerance, as far as either float32 step lies from float64 (PERF.md
+    §6, K16). K16 is held per call in bn_phase, and over a whole flagship
+    step, with this pair, against float64 in train_phases (8b)."""
+    from crfconv_tpu_torch.ops import batch_norm
+
+    return (batch_norm, "fallback_reason", lambda *a: "plain")
+
+
+# a train step through K16 against one through PyTorch's batch norm: the
+# loss's relative gap (the statistics' float32 sums in another order, ~1e-7
+# relative each, through every layer), as the data-parallel steps' rtol
+BN_LOSS_RTOL = 1e-5
+# K16's whole-step median relative gradient error against float64 over
+# PyTorch's batch norm's: read 0.85 and 1.83 on flagship steps and 1.31 on
+# a ScanNet step, 495 where the K16 step's gradients were a later step's
+# (H100 80GB HBM3): the limit lies between, with room on both sides
+BN_GRAD_ERROR_RATIO = 10.0
+
+
+def batch_to64(batch):
+    """A PointBatch's features and positions in float64."""
+    return batch._replace(x=batch.x.double(), scales=tuple(
+        s._replace(pos=s.pos.double()) for s in batch.scales))
+
+
+def grad_errors(model, ref, g_max: float) -> dict:
+    """Each gradient's largest |model - ref| over its tensor's largest
+    |ref| (at least 1e-6 of ``g_max``, the model's largest)."""
+    rp = dict(ref.named_parameters())
+    out = {}
+    for n, p in model.named_parameters():
+        r = rp[n].grad.double()
+        out[n] = float((p.grad.double() - r).abs().max()) / max(
+            float(r.abs().max()), 1e-6 * g_max)
+    return out
 
 
 def record_calls(sites, run, snapshot=()):
@@ -1620,14 +1722,28 @@ def print_phase(r) -> None:
 def leaky_backward_ab(step, rows) -> dict:
     """The flagship step with the leaky-ReLU backward kernel (profiled
     ``rows``) against the same step with torch's own leaky-ReLU backward
-    (which takes the slope as the gradient at 0): step ms (events, median
-    of 3) in turns kernel, torch, torch, kernel, and profiler launches."""
+    (which takes the slope as the gradient at 0) at the call sites that
+    still reach ``common.leaky_relu``, the 10 activations after a residual
+    add (K16 applies the other 37 with their batch norms): step ms (events,
+    median of 3) in turns kernel, torch, torch, kernel, profiler launches
+    and the calls patched a step."""
     import torch.nn.functional as F
     from crfconv_tpu_torch.models import common
 
     def torch_leaky(x, slope):
         return F.leaky_relu(x, negative_slope=slope)
 
+    calls = []
+
+    def counted(x, slope):
+        calls.append(1)
+        return torch_leaky(x, slope)
+
+    with patched([(common, "leaky_relu", counted)]):
+        step()
+    expect(len(calls) == EXPECTED_PER_STEP["leaky_relu_bwd"],
+           f"leaky-ReLU A/B: {len(calls)} calls of common.leaky_relu a "
+           f"step, expected {EXPECTED_PER_STEP['leaky_relu_bwd']}")
     ms = {"kernel": [], "torch": []}
     for arm in ("kernel", "torch", "torch", "kernel"):
         pairs = [(common, "leaky_relu", torch_leaky)] if arm == "torch" else []
@@ -1635,7 +1751,8 @@ def leaky_backward_ab(step, rows) -> dict:
             ms[arm].append(median_ms(step, runs=3, warmup=1))
     with patched([(common, "leaky_relu", torch_leaky)]):
         torch_rows = profile_device(step)
-    out = {"kernel": {"step_ms": ms["kernel"],
+    out = {"calls_a_step": len(calls),
+           "kernel": {"step_ms": ms["kernel"],
                       "launches": sum(r[2] for r in rows)},
            "torch": {"step_ms": ms["torch"],
                      "launches": sum(r[2] for r in torch_rows)}}
@@ -1751,14 +1868,17 @@ def train_phases(dev, rng, out_dir: str, results: dict) -> dict:
     p_counts = cuda_build.launch_counts()
     torch.cuda.synchronize()
     for name in ("windowed_gather", "windowed_weighted_reduce",
-                 "windowed_gather_bwd", "leaky_relu_bwd"):
+                 "windowed_gather_bwd", "leaky_relu_bwd", "batch_norm_stats",
+                 "batch_norm_apply", "batch_norm_bwd"):
         expect(k_counts[name] == EXPECTED_PER_STEP[name],
                f"kernel step: {k_counts[name]} launches of {name}")
-    expect(not any(p_counts.values()), f"plain step launched {p_counts}")
-    # K1 and K7 are bit-equal to their plain versions, so the forward and
-    # the loss are too. The backward differs only by the order of K8's and
-    # autograd's f32 atomics (~1e-7 relative per call; the backward makes
-    # no discrete choices that could amplify it)
+    expect(only_nonzero(p_counts) == bn_train(FLAGSHIP_BN),
+           f"plain step launched {p_counts}, expected K16's alone")
+    # K1 and K7 are bit-equal to their plain versions and K16 runs in both,
+    # so the forward and the loss are bit-equal too. The backward differs
+    # only by the order of K8's and autograd's f32 atomics (~1e-7 relative
+    # per call; the backward makes no discrete choices that could amplify
+    # it)
     loss_k, loss_p = float(mk["loss"]), float(mp["loss"])
     expect(loss_k == loss_p, f"kernel vs plain step: loss {loss_k} vs {loss_p}")
     d_grad, worst, g_max = grad_gap(sk.model, sp.model)
@@ -1791,6 +1911,50 @@ def train_phases(dev, rng, out_dir: str, results: dict) -> dict:
           f"plain versions {plain_step_ms:.3f} ms", flush=True)
     # K8 adds without atomics: two steps are bit-identical
     expect(rerun_bit_equal, "kernel step rerun: gradients not bit-identical")
+
+    # 8b. K16 over a whole step: the same step with every kernel off (K16
+    # too: PyTorch's batch norm differentiated by autograd) and in float64
+    # through PyTorch's ops. Each float32 step's gradients against
+    # float64's (bn_plain_pair says why not against each other): K16's
+    # median relative error within BN_GRAD_ERROR_RATIO of PyTorch's, the
+    # losses within BN_LOSS_RTOL
+    sk, s0, s64 = (make_train_state(dev) for _ in range(3))
+    s64.model.double()
+    loss_16 = float(pb_step(sk, batch, step_generator(dev, 101))["loss"])
+    cuda_build.reset_launch_counts()
+    with patched(plain_pairs + [bn_plain_pair()]):
+        m0 = pb_step(s0, batch, step_generator(dev, 101))
+        z_counts = cuda_build.launch_counts()
+        m64 = pb_step(s64, batch_to64(batch), step_generator(dev, 101))
+    torch.cuda.synchronize()
+    expect(not any(z_counts.values()),
+           f"step with every kernel off launched {z_counts}")
+    loss_0, loss_64 = float(m0["loss"]), float(m64["loss"])
+    expect(abs(loss_16 - loss_0) <= BN_LOSS_RTOL * abs(loss_0),
+           f"K16 vs PyTorch's batch norm step: loss {loss_16} vs {loss_0}")
+    g64_max = max(float(p.grad.abs().max()) for p in s64.model.parameters())
+    err_k = grad_errors(sk.model, s64.model, g64_max)
+    err_0 = grad_errors(s0.model, s64.model, g64_max)
+    med_k, med_0 = (float(np.median(list(e.values()))) for e in (err_k, err_0))
+    worst_k, worst_0 = (max(e, key=e.get) for e in (err_k, err_0))
+    expect(med_k <= BN_GRAD_ERROR_RATIO * med_0,
+           f"K16 step against float64: median gradient "
+           f"error {med_k:.3g}, PyTorch's batch norm's {med_0:.3g}")
+    d_bn = grad_gap(sk.model, s0.model)[:2]
+    k16_step = {
+        "loss": [loss_16, loss_0, loss_64],
+        "median_grad_error_vs_float64": [med_k, med_0],
+        "worst_grad_error_vs_float64": [[worst_k, err_k[worst_k]],
+                                        [worst_0, err_0[worst_0]]],
+        "grad_gap_against_torch_bn": d_bn}
+    print(f"# flagship step, K16 against PyTorch's batch norm (every other "
+          f"kernel too) and float64: loss {loss_16!r}, {loss_0!r}, "
+          f"{loss_64!r}; gradients against float64's, median relative "
+          f"error {med_k:.3g} and {med_0:.3g}, worst {worst_k} "
+          f"{err_k[worst_k]:.3g} and {worst_0} {err_0[worst_0]:.3g}; "
+          f"grad_gap of the two float32 steps {d_bn[0]:.3g} at "
+          f"{d_bn[1]}", flush=True)
+    del sk, s0, s64, m0, m64
 
     # 9. eval step, checkpoint round trip
     eval_step = make_eval_step(TRAIN_MODE)
@@ -1832,6 +1996,7 @@ def train_phases(dev, rng, out_dir: str, results: dict) -> dict:
             "rerun_grads_bit_equal": rerun_bit_equal,
             "kernel_step_ms": kernel_step_ms, "plain_step_ms": plain_step_ms,
         },
+        "k16_step_vs_float64": k16_step,
         "train_calls_per_step": EXPECTED_PER_STEP,
     }
 
@@ -2080,7 +2245,8 @@ def crf_call_sites():
 def scannet_plain_pairs():
     """The ScanNet model's kernels replaced by their plain versions at their
     call sites: K1 (so K8 becomes autograd's) and the whole fused CRF core
-    (so K9-K12 become autograd through the plain K9/K10)."""
+    (so K9-K12 become autograd through the plain K9/K10). K16 runs in both
+    arms (see :func:`bn_plain_pair`)."""
     from crfconv_tpu_torch.ops import crf, crf_core, neighbors, windowed
 
     return [(neighbors, "windowed_gather", windowed.windowed_gather_plain),
@@ -2256,7 +2422,8 @@ def crf_net_phases(label, model, seed, make_state, request, raw_batch, cfg,
     # the order of autograd's atomics and K11's and K12's sums
     step_check = small_kernel_vs_plain_step(
         label, make_state, raws[0], dev, tcfg, scannet_plain_pairs(),
-        {**SCANNET_PER_STEP, "window_knn": 0}, {}, loss_rtol=0.0,
+        {**SCANNET_PER_STEP, "window_knn": 0}, bn_train(CRF_NET_BN),
+        loss_rtol=0.0,
     )
     return {
         "config": {"model": tcfg.model_name, "batch": b, "points": n,
@@ -2363,7 +2530,8 @@ def discrete_plain_pairs():
     call sites: K1 (so K8 becomes autograd's) and the whole discrete core
     (K9, K13, and autograd for K12/K14). K2 (the CRF's kNN) stays: it is
     held against its plain version on its recorded calls, and a last-bit
-    distance tie there would move a neighbour, not test the rest."""
+    distance tie there would move a neighbour, not test the rest. K16
+    stays, as in :func:`scannet_plain_pairs`."""
     from crfconv_tpu_torch.ops import crf, discrete_core, neighbors, windowed
 
     return [(neighbors, "windowed_gather", windowed.windowed_gather_plain),
@@ -2510,7 +2678,7 @@ def discrete_phases(dev, rng, out_dir: str, results: dict) -> dict:
     step_check = small_kernel_vs_plain_step(
         "discrete", lambda: discrete_state(cfg, dev), raws[0], dev, cfg,
         discrete_plain_pairs(), {**DISCRETE_PER_STEP, "window_knn": 1},
-        {"window_knn": 1}, loss_rtol=1e-6,
+        {"window_knn": 1, **bn_train(DISCRETE_BN)}, loss_rtol=1e-6,
     )
     torch.cuda.empty_cache()
     return {
@@ -2542,22 +2710,165 @@ def discrete_phases(dev, rng, out_dir: str, results: dict) -> dict:
 
 
 def semantic3d_phases(dev, rng, out_dir: str, results: dict) -> dict:
-    """Phase 15: Semantic3D serving (:func:`flagship_serve_phases`)."""
+    """Phase 15: Semantic3D serving (:func:`flagship_serve_phases`), with
+    K16 held on its forward's calls (:func:`bn_phase`)."""
     from crfconv_tpu_torch.train.config import Semantic3DConfig
 
     return flagship_serve_phases("semantic3d", Semantic3DConfig(), SEED + 13,
-                                 dev, rng, out_dir, results)
+                                 dev, rng, out_dir, results, hold_bn=True)
+
+
+def _bn_close(what, got, ref, rtol, atol, worst) -> None:
+    """``got`` (float32) against ``ref`` within rtol and atol; keeps the
+    largest |got - ref| / (atol + rtol |ref|) under ``what``."""
+    r = ref.double()
+    d = (got.double() - r).abs() / (atol + rtol * r.abs())
+    worst[what] = max(worst.get(what, 0.0), float(d.max()) if d.numel() else 0)
+
+
+def bn_phase(label, model, batch, mode, dev) -> dict:
+    """K16 held against its plain versions on the calls of one forward of
+    the flagship ``model`` on ``batch`` (the serving shapes): in eval, the
+    apply of each batch norm given its running variance; in train mode (a
+    forward without a graph), each batch norm's statistics with the update
+    of (copies of) the running ones, its apply, and its backward of a
+    seeded gradient. Tolerances are the card tests' (test_torch_batch_norm
+    .py): the statistics and the backward against float64 plain versions,
+    the apply bit for bit given invstd and within 1e-6 given the variance;
+    every launch rerun bit for bit. Times each wrapper and its plain
+    version (float32, on the card) a call (events, median of 5) beside the
+    bytes' bound (x once; x and y; x, g and dx)."""
+    from crfconv_tpu_torch.ops import batch_norm as bn
+
+    def recorded(training: bool) -> list:
+        calls, front = [], bn.batch_norm_act
+
+        def rec(*args):
+            calls.append(args)
+            return front(*args)
+
+        kept = {k: v.clone() for k, v in model.state_dict().items()}
+        model.train(training)
+        try:
+            with torch.no_grad(), patched([(bn, "batch_norm_act", rec)]):
+                model(batch, mode, dropout_generator=torch.Generator(
+                    device=dev).manual_seed(SEED))
+        finally:
+            model.eval()
+            model.load_state_dict(kept)
+        torch.cuda.synchronize()
+        return calls
+
+    def timed(fn) -> float:
+        return median_ms(fn, runs=5, warmup=1)
+
+    out, worst, unequal = {}, {}, []
+    ms = {k: [0.0, 0.0, 0.0] for k in ("stats", "apply", "bwd")}
+    gen = torch.Generator(device=dev).manual_seed(SEED + 16)
+    with torch.no_grad():
+        eval_calls = recorded(False)
+        for x, scale, bias, rm, rv, eps, slope, _, _ in eval_calls:
+            rows = x.reshape(-1, x.shape[-1])
+            args = (rows, rm, rv, scale, bias, eps, slope, True)
+            y = bn.batch_norm_apply(*args)
+            _bn_close("eval apply", y, bn.batch_norm_apply_plain(*args),
+                      1e-6, 1e-6, worst)
+            if not torch.equal(bn.batch_norm_apply(*args), y):
+                unequal.append("eval apply")
+            ms["apply"][0] += timed(lambda: bn.batch_norm_apply(*args))
+            ms["apply"][1] += timed(lambda: bn.batch_norm_apply_plain(*args))
+            ms["apply"][2] += 2 * nbytes(rows) / PEAK_BYTES_PER_S * 1e3
+        out["eval"] = {"calls": len(eval_calls), "apply_ms": ms["apply"]}
+        del eval_calls
+        ms["apply"] = [0.0, 0.0, 0.0]
+        train_calls = recorded(True)
+        for x, scale, bias, rm, rv, eps, slope, _, keep in train_calls:
+            rows = x.reshape(-1, x.shape[-1])
+            rm1, rv1 = rm.clone(), rv.clone()
+            mean, invstd = bn.batch_norm_stats(rows, rm1, rv1, eps, keep)
+            rm64, rv64 = rm.double(), rv.double()
+            m64, i64 = bn.batch_norm_stats_plain(rows.double(), rm64, rv64,
+                                                 eps, keep)
+            big = float(rows.abs().max())
+            _bn_close("train mean", mean, m64, 1e-5, 1e-6 * big, worst)
+            _bn_close("train invstd", invstd, i64, 1e-5, 0.0, worst)
+            _bn_close("running mean", rm1, rm64, 1e-5, 1e-6 * big, worst)
+            _bn_close("running var", rv1, rv64, 1e-5, 1e-6, worst)
+            rm2, rv2 = rm.clone(), rv.clone()
+            again = bn.batch_norm_stats(rows, rm2, rv2, eps, keep)
+            if not (torch.equal(again[0], mean) and torch.equal(
+                    again[1], invstd) and torch.equal(rm2, rm1)
+                    and torch.equal(rv2, rv1)):
+                unequal.append("train stats")
+            del m64, i64, again
+            a_args = (rows, mean, invstd, scale, bias, eps, slope, False)
+            y = bn.batch_norm_apply(*a_args)
+            if not torch.equal(y, bn.batch_norm_apply_plain(*a_args)):
+                unequal.append("train apply against its plain version")
+            g = torch.randn(rows.shape, device=dev, generator=gen)
+            b_args = (rows, g, mean, invstd, scale, bias, slope, True)
+            got = bn.batch_norm_bwd(*b_args)
+            g64 = g.double()
+            if slope is not None:   # the kernel's masks, z in float32
+                z = (rows - mean) * invstd * scale + bias
+                g64 = torch.where(z >= 0, g64, g64 * slope)
+                del z
+            ref = bn.batch_norm_bwd_plain(
+                rows.double(), g64, mean.double(), invstd.double(),
+                scale.double(), bias.double(), None, True)
+            for what, a, r in zip(("dx", "dscale", "dbias"), got, ref):
+                _bn_close(f"backward {what}", a, r, 1e-4,
+                          1e-5 * float(r.abs().max()), worst)
+            if not all(torch.equal(a, b) for a, b in zip(
+                    got, bn.batch_norm_bwd(*b_args))):
+                unequal.append("train backward")
+            del g64, ref, got, y
+            ms["stats"][0] += timed(lambda: bn.batch_norm_stats(
+                rows, rm2, rv2, eps, keep))
+            ms["stats"][1] += timed(lambda: bn.batch_norm_stats_plain(
+                rows, rm2, rv2, eps, keep))
+            ms["apply"][0] += timed(lambda: bn.batch_norm_apply(*a_args))
+            ms["apply"][1] += timed(lambda: bn.batch_norm_apply_plain(
+                *a_args))
+            ms["bwd"][0] += timed(lambda: bn.batch_norm_bwd(*b_args))
+            ms["bwd"][1] += timed(lambda: bn.batch_norm_bwd_plain(*b_args))
+            one = nbytes(rows) / PEAK_BYTES_PER_S * 1e3
+            for k, n in (("stats", 1), ("apply", 2), ("bwd", 3)):
+                ms[k][2] += n * one
+        out["train"] = {"calls": len(train_calls), "stats_ms": ms["stats"],
+                        "apply_ms": ms["apply"], "bwd_ms": ms["bwd"]}
+        del train_calls
+    torch.cuda.empty_cache()
+    out["of_tolerance"] = worst
+    expect(out["eval"]["calls"] == SEMANTIC3D_PER_REQUEST["batch_norm_apply"]
+           and out["train"]["calls"] == FLAGSHIP_BN,
+           f"{label} K16: {out['eval']['calls']} eval and "
+           f"{out['train']['calls']} train batch norms a forward")
+    off = {k: v for k, v in worst.items() if not v <= 1.0}
+    expect(not off, f"{label} K16 against its plain versions: {off} of the "
+           f"tolerance")
+    expect(not unequal, f"{label} K16 not bit-equal: {sorted(set(unequal))}")
+    print(f"# {label} K16 on a forward's calls ({CARD}): eval "
+          f"{out['eval']['calls']} applies, train {out['train']['calls']} "
+          f"batch norms; ms summed over the calls [kernel, plain, bytes' "
+          f"bound]: eval apply "
+          f"{[round(v, 3) for v in out['eval']['apply_ms']]}, train stats {[round(v, 3) for v in ms['stats']]}, apply "
+          f"{[round(v, 3) for v in ms['apply']]}, backward "
+          f"{[round(v, 3) for v in ms['bwd']]}; worst of the tolerance "
+          f"{ {k: round(v, 4) for k, v in worst.items()} }", flush=True)
+    return out
 
 
 def flagship_serve_phases(label, cfg, seed, dev, rng, out_dir: str,
-                          results: dict) -> dict:
+                          results: dict, hold_bn: bool = False) -> dict:
     """A serving path of the full-width flagship at a large cloud size
     (``cfg``'s batch, points, input channels and classes), weights from
     ``seed``: a recorded warm-up request whose K1-K5 calls are held against
     the plain versions, SEMANTIC3D_REQUESTS requests through the Predictor
     with the launches of SEMANTIC3D_PER_REQUEST each, a kernel-vs-plain
-    forward, a profile and peak memory. Adds the kernel phases to
-    ``results`` and returns the measurements."""
+    forward (K16 in both), with ``hold_bn`` K16 held on the forward's calls
+    (:func:`bn_phase`), a profile and peak memory. Adds the kernel phases
+    to ``results`` and returns the measurements."""
     from crfconv_tpu_torch import Predictor, PointConvResNet, cuda_build
     from crfconv_tpu_torch.models import point_conv_big
     from crfconv_tpu_torch.ops import conv
@@ -2650,7 +2961,10 @@ def flagship_serve_phases(label, cfg, seed, dev, rng, out_dir: str,
           f"{pyramid_ms:.3f} ms, forward {forward_ms:.3f} ms; plain-version "
           f"forward {plain_forward_ms:.3f} ms); peak memory of a request "
           f"{peak:.2f} GiB", flush=True)
-    del got, ref, batch
+    del got, ref
+    norm_act = bn_phase(label, model, batch, SERVING_MODE, dev) \
+        if hold_bn else None
+    del batch
     with torch.inference_mode():
         profile_rows, busy = profile_phase(
             f"{label} profiler", lambda: predictor.predict_logits(p_, f_),
@@ -2676,6 +2990,7 @@ def flagship_serve_phases(label, cfg, seed, dev, rng, out_dir: str,
         "kernel_busy_ms": busy,
         "profile": profile_rows[:40],
         "calls_per_request": SEMANTIC3D_PER_REQUEST,
+        "batch_norm_act": norm_act,
     }
 
 
@@ -2886,7 +3201,7 @@ def exact_phases(dev, rng, out_dir: str, results: dict) -> dict:
                f"gradient {bad[:4]}")
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     record_launches("exact train", cuda_build.launch_counts(),
-                    only({"leaky_relu_bwd": FLAGSHIP_LEAKY_PER_STEP}),
+                    only(FLAGSHIP_NORM_ACT_PER_STEP),
                     TRAIN_STEPS, "steps")
     after = snapshot(state.model)
     still = [nm for nm in params if torch.equal(before[nm], after[nm])]
@@ -2911,8 +3226,9 @@ def exact_phases(dev, rng, out_dir: str, results: dict) -> dict:
     cuda_build.reset_launch_counts()
     ev = make_eval_step(EXACT, windowed=False)(state, batch)
     torch.cuda.synchronize()
-    expect(not any(cuda_build.launch_counts().values()),
-           f"exact eval launched {cuda_build.launch_counts()}")
+    expect(only_nonzero(cuda_build.launch_counts()) == bn_eval(FLAGSHIP_BN),
+           f"exact eval launched {cuda_build.launch_counts()}, expected "
+           f"{bn_eval(FLAGSHIP_BN)}")
     probs = ev["probs"]
     expect(tuple(probs.shape) == (B, N, N_CLASSES)
            and bool(torch.isfinite(probs).all())
@@ -3288,7 +3604,8 @@ def kitti_phases(dev, rng, out_dir: str, results: dict) -> dict:
     ]
     step_check = small_kernel_vs_plain_step(
         "kitti", lambda: kitti_state(cfg, dev), raws[0], dev, cfg,
-        plain_pairs, {**KITTI_PER_STEP, "window_knn": 0}, {}, loss_rtol=0.0,
+        plain_pairs, {**KITTI_PER_STEP, "window_knn": 0},
+        bn_train(FLAGSHIP_BN), loss_rtol=0.0,
         dropout=True,
     )
     print(f"# kitti train: K7 on (rows a cloud, width) {k7_rows}", flush=True)
@@ -3359,9 +3676,10 @@ def exact_train_path(label, make_state, make_raw, cfg, dev, expected,
     torch.cuda.empty_cache()
 
     # one pyramid seed: K6 and the leaky ReLU's backward against their plain
-    # versions (the pyramid and the forward are bit-equal, so the loss is);
-    # the scans' backward adds with autograd's atomics (gather's backward),
-    # so the gradients are held to grad_gap and a rerun is reported
+    # versions, K16 in both steps (the pyramid and the forward are
+    # bit-equal, so the loss is); the scans' backward adds with autograd's
+    # atomics (gather's backward), so the gradients are held to grad_gap and
+    # a rerun is reported
     sk, sk2, sp = (make_state() for _ in range(3))
     cuda_build.reset_launch_counts()
     mk = step(sk, raws[0], step_generator(dev, 100))
@@ -3376,8 +3694,9 @@ def exact_train_path(label, make_state, make_raw, cfg, dev, expected,
     for name, per in expected.items():
         expect(k_counts[name] == per, f"{label} kernel step: "
                f"{k_counts[name]} launches of {name}, expected {per}")
-    expect(not any(p_counts.values()), f"{label} plain step launched "
-           f"{p_counts}")
+    k16 = {k: v for k, v in expected.items() if k.startswith("batch_norm")}
+    expect(only_nonzero(p_counts) == k16, f"{label} plain step launched "
+           f"{p_counts}, expected K16's {k16} alone")
     loss_k, loss_p = float(mk["loss"]), float(mp["loss"])
     expect(loss_k == loss_p, f"{label} kernel vs plain step: loss {loss_k} vs "
            f"{loss_p}")
@@ -3433,7 +3752,7 @@ def scannet_exact_phases(dev, rng, out_dir: str, results: dict) -> dict:
     serve = ExactServer(model, dev, cfg.kernel_sizes, cfg.ratios, cfg.k_up)
     phases, serving = exact_serve_path(
         "scannet_exact", lambda: scannet_cloud(cfg, rng, dev), serve,
-        SCANNET_REQUESTS, EXACT_PER_REQUEST, check_logp, out_dir)
+        SCANNET_REQUESTS, SCANNET_EXACT_PER_REQUEST, check_logp, out_dir)
     for name, r in phases.items():
         results.setdefault(name, []).extend(r)
     del model, serve
@@ -3499,11 +3818,12 @@ S3DIS_COLORS = {
 }
 # launches per loader-fed S3DIS step: the flagship's train step
 S3DIS_LOADER_PER_STEP = EXPECTED_PER_STEP
-# per exact-regime ShapeNet step on the host pyramid: the leaky ReLU's
-# backward once per activation of CRFSegNet_Part (counted on a CPU step by
+# per exact-regime ShapeNet step on the host pyramid: K16 for every batch
+# norm of CRFSegNet_Part and the leaky ReLU's backward once per activation
+# after no batch norm (counted on a CPU step under the card's dispatch by
 # tests/test_torch_chip_smoke_checks.py), no other kernel (the host builds
 # the pyramid, the CRFs are the scans)
-SHAPENET_EXACT_PER_STEP = {"leaky_relu_bwd": 41}
+SHAPENET_EXACT_PER_STEP = {"leaky_relu_bwd": 14, **bn_train(CRF_NET_BN)}
 
 
 def box_surface(rng, lo, hi, n: int):
@@ -4455,11 +4775,18 @@ def trainer_shapenet_phase(dev, rng, out_dir: str, results: dict) -> dict:
             "calls_per_val_batch": only(SHAPENET_VAL_PER_BATCH)}
 
 
+# a bf16 request and step: the float32 ones' launches but the batch norms',
+# which keep PyTorch's ops in bfloat16 (no K16; K15 once per activation)
+BF16_PER_REQUEST = {**EXPECTED_PER_REQUEST, **bn_eval(0)}
+BF16_PER_STEP = {**EXPECTED_PER_STEP, **TORCH_NORM_PER_STEP}
+
+
 def bf16_phase(dev, rng, out_dir: str, results: dict) -> dict:
     """Phase 31: the bf16 compute mode on the full-width flagship at B8 x
     8192: a request through Predictor and a train step, under
     ``compute_dtype_scope(torch.bfloat16)`` and in float32, from the same
-    weights, pyramid offsets and dropout seed: the same launch counts, each
+    weights, pyramid offsets and dropout seed: the same launch counts
+    outside the batch norms (BF16_PER_REQUEST, BF16_PER_STEP), each
     kernel call of the bf16 request and step held against its plain
     version (widened, as the wrappers widen), the median |logit|
     difference from float32 below 0.1, the loss float32 and finite, the
@@ -4506,8 +4833,8 @@ def bf16_phase(dev, rng, out_dir: str, results: dict) -> dict:
                f"bf16 phase: the compute dtype leaked ({get_compute_dtype()})")
         if dtype is not None:
             record_launches("bf16 serve", serve_counts, only(
-                EXPECTED_PER_REQUEST), 1, "requests")
-            record_launches("bf16 train", step_counts, only(EXPECTED_PER_STEP),
+                BF16_PER_REQUEST), 1, "requests")
+            record_launches("bf16 train", step_counts, only(BF16_PER_STEP),
                             1, "steps")
             hold_calls("bf16 serve", serve_sites, calls)
             hold_calls("bf16 train", train_sites, tcalls)
@@ -4523,8 +4850,14 @@ def bf16_phase(dev, rng, out_dir: str, results: dict) -> dict:
         del predictor, state, m
         torch.cuda.empty_cache()
     f32, bf = out["f32"], out["bf16"]
-    expect(f32["serve_counts"] == bf["serve_counts"]
-           and f32["step_counts"] == bf["step_counts"],
+
+    def outside_norms(counts):   # K15 and K16 differ by design
+        return {k: v for k, v in counts.items()
+                if k != "leaky_relu_bwd" and not k.startswith("batch_norm")}
+
+    expect(outside_norms(f32["serve_counts"]) == outside_norms(
+        bf["serve_counts"]) and outside_norms(f32["step_counts"])
+        == outside_norms(bf["step_counts"]),
            f"bf16 phase: launches {bf['serve_counts']}, {bf['step_counts']} "
            f"against float32's {f32['serve_counts']}, {f32['step_counts']}")
     diff = (bf["logits"] - f32["logits"]).abs()
@@ -4547,8 +4880,8 @@ def bf16_phase(dev, rng, out_dir: str, results: dict) -> dict:
             "median_abs_dlogit": med, "max_abs_dlogit": worst,
             "argmax_agreement": agree, "loss": bf["loss"],
             "f32_loss": f32["loss"],
-            "calls_per_request": only(EXPECTED_PER_REQUEST),
-            "calls_per_step": only(EXPECTED_PER_STEP)}
+            "calls_per_request": only(BF16_PER_REQUEST),
+            "calls_per_step": only(BF16_PER_STEP)}
 
 
 # --------------------------------------------------------------------------
@@ -4937,8 +5270,10 @@ DP_TRAINER_STEPS = 3    # train steps an epoch of the two-rank Trainer
 DP_TRAINER_EPOCHS = 2
 # the exact regime's flagship step: its pyramid on the card (K6 10 launches)
 # and the flagship's activations
-DP_EXACT_PER_STEP = {"select_min_k": 10,
-                     "leaky_relu_bwd": FLAGSHIP_LEAKY_PER_STEP}
+DP_EXACT_PER_STEP = {"select_min_k": 10, **TORCH_NORM_PER_STEP}
+# a rank's flagship step: the one process's launches, its batch norms on
+# PyTorch's ops
+DP_PER_STEP = {**EXPECTED_PER_STEP, **TORCH_NORM_PER_STEP}
 
 
 def cuda_mark():
@@ -5322,7 +5657,7 @@ def dp_phase(dev, rng, out_dir: str, results: dict) -> dict:
         for name, paths in r["held"].items():
             HELD[name].update(paths)
     report = {"world1": world1, "ranks_s": ranks_s}
-    for key, per, sites in (("flagship", EXPECTED_PER_STEP,
+    for key, per, sites in (("flagship", DP_PER_STEP,
                              dp_sites(False)),
                             ("exact", only(DP_EXACT_PER_STEP),
                              dp_sites(True))):
@@ -5403,7 +5738,7 @@ def dp_phase(dev, rng, out_dir: str, results: dict) -> dict:
                    for k in r["state"]),
                "data-parallel trainer: the resumed run's state is not the "
                "uninterrupted run's")
-        expected = {k: n_steps * EXPECTED_PER_STEP.get(k, 0)
+        expected = {k: n_steps * DP_PER_STEP.get(k, 0)
                     + r["val_batches"] * TWO_VIEW_PER_EVAL.get(k, 0)
                     for k in REPLACES}
         expect(r["counts"] == expected, f"data-parallel trainer: launched "
@@ -6280,6 +6615,17 @@ def main() -> int:
     # "held_on", and max_abs_err is the largest over both
     kernels = []
     for name in REPLACES:
+        if name.startswith("batch_norm"):
+            # K16: held and timed on a forward's calls by bn_phase
+            # (paths.semantic3d.batch_norm_act), not in a kernel phase
+            kernels.append({
+                "name": name, "route": "cuda",
+                "source": f"crfconv_tpu_torch/csrc/{kernel_source(name)}",
+                "replaces": REPLACES[name],
+                "launches": sum(LAUNCHES[name].values()),
+                "launches_by_path": LAUNCHES[name],
+                "timed_on": "semantic3d serve (bn_phase)"})
+            continue
         phases = results[name]
         r = {k: v for k, v in phases[0].items()
              if k not in ("path", "calls", "max_abs_ref", "of_bound",

@@ -187,12 +187,27 @@ LEAKY_RELU_BWD = Kernel(
     [_P] * 3 + [ctypes.c_longlong, _I, ctypes.c_longlong, ctypes.c_float,
                 _P],
 )
+# K16, one library: the batch statistics (two kernels a call), the apply,
+# and the backward (three kernels a call)
+BATCH_NORM_STATS = Kernel(
+    "batch_norm_stats", "batch_norm_act.cu", "batch_norm_stats_f32",
+    [ctypes.c_char_p],
+)
+BATCH_NORM_APPLY = Kernel(
+    "batch_norm_apply", "batch_norm_act.cu", "batch_norm_apply_f32",
+    [ctypes.c_char_p],
+)
+BATCH_NORM_BWD = Kernel(
+    "batch_norm_bwd", "batch_norm_act.cu", "batch_norm_bwd_f32",
+    [ctypes.c_char_p],
+)
 KERNELS = (
     WINDOWED_GATHER, WINDOW_KNN, POINT_CONV_FUSED_INFER,
     CRF_SIMILARITY_MESSAGE, WINDOWED_WEIGHTED_REDUCE, WINDOWED_GATHER_BWD,
     CRF_OPERATOR, CRF_ITERATE, CRF_ITERATE_BWD, CRF_NEIGHBOR_DOT,
     POINT_CONV_FUSED_STRIDED, DISCRETE_ITERATE, DISCRETE_ITERATE_BWD,
-    SELECT_MIN_K, LEAKY_RELU_BWD,
+    SELECT_MIN_K, LEAKY_RELU_BWD, BATCH_NORM_STATS, BATCH_NORM_APPLY,
+    BATCH_NORM_BWD,
 )
 
 
@@ -205,10 +220,12 @@ def build(
     t0 = time.perf_counter()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     jobs = []
+    started = set()     # kernels of one source share one library
     for k in KERNELS if kernels is None else kernels:
         out = k.library_path()
-        if out.exists():
+        if out.exists() or out in started:
             continue
+        started.add(out)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         proc = subprocess.Popen(
             k.build_command(tmp, verbose), stdout=subprocess.PIPE,

@@ -25,8 +25,9 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from crfconv_tpu_torch.ops import spatial_state
+from crfconv_tpu_torch.ops import batch_norm, spatial_state
 from crfconv_tpu_torch.ops.activation import leaky_relu
+from crfconv_tpu_torch.utils import profiling
 
 BN_MOMENTUM = 0.9   # running stats: ra = 0.9 * ra + 0.1 * batch, as flax
 
@@ -64,6 +65,12 @@ def leaky_relu001(x: torch.Tensor) -> torch.Tensor:
     """LeakyReLU(0.01), torch's default slope, on the residual adds (flax's
     gradient at 0)."""
     return leaky_relu(x, 0.01)
+
+
+# the activations a batch norm's pass applies, by their slope; an MLP with
+# any other activation (a partial or a lambda of leaky_relu too) applies it
+# after the norm, as a pass of its own that counts as no fallback
+LEAKY_SLOPES = {leaky_relu01: 0.1, leaky_relu001: 0.01}
 
 
 def dropout(x: torch.Tensor, rate: float,
@@ -126,6 +133,12 @@ class MaskedBatchNorm(nn.Module):
     all-reduces are differentiable, and the running statistics, updated
     from the global ones, stay equal on every rank.
     With no mask and no such step the statistics are today's local ones.
+
+    A leaky ReLU of slope ``slope`` may follow the norm. Float32 CUDA
+    tensors take the kernels of ``ops/batch_norm.py`` (K16: the norm and
+    the activation in one pass each way), in training where there is no
+    mask and no such step; every other call takes PyTorch's ops below, and
+    a CUDA one counts in ``profiling.bn_fallbacks()`` under its reason.
     """
 
     def __init__(self, features: int, epsilon: float = 1e-5, device=None):
@@ -136,11 +149,25 @@ class MaskedBatchNorm(nn.Module):
         self.register_buffer("mean", torch.zeros(features, device=device))
         self.register_buffer("var", torch.ones(features, device=device))
 
-    def forward(self, x: torch.Tensor,
-                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
+                slope: Optional[float] = None) -> torch.Tensor:
+        why = batch_norm.fallback_reason(x, mask, self.training, self.scale,
+                                         self.bias, self.mean, self.var)
+        if why is None:
+            return batch_norm.batch_norm_act(
+                x, self.scale, self.bias, self.mean, self.var, self.epsilon,
+                slope, self.training, BN_MOMENTUM)
+        if x.is_cuda:
+            profiling.count_bn_fallback(why)
+        y = self._norm(x, mask)
+        return y if slope is None else leaky_relu(y, slope)
+
+    def _norm(self, x: torch.Tensor,
+              mask: Optional[torch.Tensor]) -> torch.Tensor:
         if not self.training:
-            y = (x - self.mean) * torch.rsqrt(self.var + self.epsilon)
-            return (y * self.scale + self.bias).to(x.dtype)
+            invstd = torch.rsqrt(self.var + self.epsilon)
+            return batch_norm.normalize(x, self.mean, invstd, self.scale,
+                                        self.bias).to(x.dtype)
         xf = x.to(torch.promote_types(x.dtype, torch.float32))
         dims = tuple(range(x.dim() - 1))
         mesh, one_pass = spatial_state.stats_mesh(
@@ -148,21 +175,15 @@ class MaskedBatchNorm(nn.Module):
         if one_pass:
             mean, var, count = self._one_pass_stats(xf, dims, mask, mesh)
         elif mask is None and mesh is None:
-            mean = xf.mean(dim=dims)
-            var = (xf - mean).square().mean(dim=dims)
+            mean, var = batch_norm.batch_stats(xf, dims)
             count = float(x.numel() // x.shape[-1])
         else:
             mean, var, count = self._global_stats(xf, dims, mask, mesh)
-        with torch.no_grad():
-            if isinstance(count, float):
-                unbiased = var * count / max(count - 1.0, 1.0)
-            else:
-                unbiased = var * count / (count - 1.0).clamp_min(1.0)
-            m = BN_MOMENTUM
-            self.mean.copy_(m * self.mean + (1 - m) * mean)
-            self.var.copy_(m * self.var + (1 - m) * unbiased)
-        y = (x - mean) * torch.rsqrt(var + self.epsilon)
-        return (y * self.scale + self.bias).to(x.dtype)
+        batch_norm.update_running(self.mean, self.var, mean, var, count,
+                                  BN_MOMENTUM)
+        invstd = torch.rsqrt(var + self.epsilon)
+        return batch_norm.normalize(x, mean, invstd, self.scale,
+                                    self.bias).to(x.dtype)
 
     @staticmethod
     def _one_pass_stats(xf, dims, mask, mesh):
@@ -259,6 +280,9 @@ class MLP(nn.Module):
         x = F.linear(x.to(dtype), self.weight.to(dtype),
                      None if self.bias is None else self.bias.to(dtype))
         if self.bn is not None:
+            slope = LEAKY_SLOPES.get(self.activation)
+            if slope is not None:   # the norm's pass applies it
+                return self.bn(x, mask, slope)
             x = self.bn(x, mask)
         if self.activation is not None:
             x = self.activation(x)

@@ -104,6 +104,19 @@ def check_no_grad(name: str, *tensors: torch.Tensor) -> None:
         )
 
 
+def row_view(t: torch.Tensor, f: int):
+    """(t as rows of ``f`` floats, the stride between them): a view where
+    t's rows are evenly spaced (a slice of a wider tensor's last
+    dimension, which a kernel reads in place), else a contiguous copy."""
+    rows, ld = t, f
+    if not t.is_contiguous():
+        rows = t.reshape(-1, f)
+        if f > 1 and rows.stride(1) != 1:
+            rows = rows.contiguous()
+        ld = rows.stride(0) if rows.shape[0] > 1 else f
+    return rows, ld
+
+
 def ptr(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
 

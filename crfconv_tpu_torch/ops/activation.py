@@ -14,7 +14,7 @@ import torch.nn.functional as F
 
 from crfconv_tpu_torch.cuda_build import LEAKY_RELU_BWD
 from crfconv_tpu_torch.ops._launch import (
-    float32_io, launch_on, on_cuda, raw_stream,
+    float32_io, launch_on, on_cuda, raw_stream, row_view,
 )
 
 
@@ -55,12 +55,7 @@ def leaky_relu_bwd(x: torch.Tensor, g: torch.Tensor,
         raise ValueError(f"x {tuple(x.shape)}, g {tuple(g.shape)}")
     x = x.contiguous()
     f = x.shape[-1] if x.dim() and x.numel() else 1
-    rows, ld = g, f
-    if not g.is_contiguous():
-        rows = g.reshape(-1, f)   # a view where g's rows are evenly spaced
-        if f > 1 and rows.stride(1) != 1:
-            rows = rows.contiguous()
-        ld = rows.stride(0) if rows.shape[0] > 1 else f
+    rows, ld = row_view(g, f)
     dx = torch.empty_like(x)
     launch_on(x.device, LEAKY_RELU_BWD, x.data_ptr(), rows.data_ptr(),
               dx.data_ptr(), x.numel() // f, f, ld, slope,

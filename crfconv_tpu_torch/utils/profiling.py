@@ -18,6 +18,8 @@ start and end, a pair of CUDA events on the current stream (unless the
 record is ranges-only, or there is no CUDA device), its parent span, the
 id of its request or step (the outermost span open in its thread) and the
 port's kernel launches made while it was open (``cuda_build``).
+``bn_fallbacks`` counts the batch norms on CUDA tensors that kept
+PyTorch's ops (``ops/batch_norm.py::fallback_reason``).
 """
 
 from __future__ import annotations
@@ -41,6 +43,23 @@ PREFIX = "crfconv_tpu_torch."
 # ``tracing`` (and ``trace``, which enters it).
 _RECORD: Optional["Record"] = None
 _OFF = contextlib.nullcontext()
+# batch norms on CUDA tensors that kept PyTorch's ops
+# (``ops/batch_norm.py::fallback_reason``), by reason, since the process
+# started
+_BN_FALLBACKS: dict = {}
+
+
+def count_bn_fallback(reason: str) -> None:
+    _BN_FALLBACKS[reason] = _BN_FALLBACKS.get(reason, 0) + 1
+
+
+def bn_fallbacks() -> dict:
+    """Batch norms on CUDA tensors that kept PyTorch's ops, by reason
+    (``"mask"``, ``"mesh"``, ``"dtype"``, ``"layout"``), since the process
+    started; CPU calls count nothing. An MLP whose activation is not in
+    ``models/common.py::LEAKY_SLOPES`` still takes the kernels for its
+    norm and applies the activation after it, uncounted."""
+    return dict(_BN_FALLBACKS)
 
 
 @dataclasses.dataclass(eq=False)

@@ -17,6 +17,8 @@ confusion against the labelled points, and the driver's overhead a step
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import sys
 from pathlib import Path
 
@@ -165,29 +167,104 @@ def test_box_surface():
     assert abs((face == 4).mean() - 30 / 126) < 0.01
 
 
+@contextlib.contextmanager
+def card_dispatch(calls: collections.Counter):
+    """The CPU taking the card's path through the batch norms (K16's
+    dispatch with CUDA tensors: the wrappers then run their plain
+    versions), counting each K15 and K16 wrapper's calls in ``calls``."""
+    from crfconv_tpu_torch.ops import activation, batch_norm
+
+    def counted(name, fn):
+        return lambda *a: calls.update([name]) or fn(*a)
+
+    reason = batch_norm.fallback_reason
+    mp = pytest.MonkeyPatch()
+    mp.setattr(batch_norm, "fallback_reason",
+               lambda *a: None if reason(*a) == "cpu" else reason(*a))
+    for module, name in ((activation, "leaky_relu_bwd"),
+                         (batch_norm, "batch_norm_stats"),
+                         (batch_norm, "batch_norm_apply"),
+                         (batch_norm, "batch_norm_bwd")):
+        mp.setattr(module, name, counted(name, getattr(module, name)))
+    try:
+        yield
+    finally:
+        mp.undo()
+
+
 def test_shapenet_exact_launches_counted_on_the_cpu():
-    """SHAPENET_EXACT_PER_STEP: the leaky ReLU's backward calls of one
-    exact-regime CRFSegNet_Part train step on the host pyramid (a CPU
-    step; the wrapper counts a launch on the card where it is called)."""
+    """SHAPENET_EXACT_PER_STEP: the K15 and K16 calls of one exact-regime
+    CRFSegNet_Part train step on the host pyramid (a CPU step under the
+    card's dispatch; the wrapper counts a launch on the card where it is
+    called)."""
     from crfconv_tpu_torch import (
         CRFSegNet_Part, NeighborMode, TrainState, make_train_step,
     )
-    from crfconv_tpu_torch.ops import activation
 
     model = CRFSegNet_Part(50, 6, steps=10, device="cpu")
-    calls = []
-    bwd = activation.leaky_relu_bwd
-    mp = pytest.MonkeyPatch()
-    mp.setattr(activation, "leaky_relu_bwd",
-               lambda *a: calls.append(1) or bwd(*a))
-    try:
+    calls = collections.Counter()
+    with card_dispatch(calls):
         make_train_step(NeighborMode("exact"), windowed=False)(
             TrainState.create(model, lr=0.01), _shapenet_batch(
                 (1, 2, 4, 2, 1)))
-    finally:
-        mp.undo()
-    assert chip_smoke.SHAPENET_EXACT_PER_STEP == {"leaky_relu_bwd":
-                                                  len(calls)}
+    assert chip_smoke.SHAPENET_EXACT_PER_STEP == dict(calls)
+
+
+@pytest.mark.parametrize("path", ["flagship", "scannet", "discrete"])
+def test_step_launches_counted_on_the_cpu(path):
+    """The K15 and K16 launches of a train step and of an eval forward in
+    chip_smoke's tables (EXPECTED_PER_STEP, SCANNET_PER_STEP,
+    DISCRETE_PER_STEP and the exact regime's requests): the calls of a
+    small CPU step and forward of each model under the card's dispatch.
+    The eval forward's batch norms are all the model's; on the card each
+    K3 or K5 call folds two of the flagship's."""
+    import torch
+
+    from crfconv_tpu_torch import (
+        BaselineDiscreteCRFSegNet, CRFSegNet, PointConvResNet, RawBatch,
+        TrainState, make_train_step,
+    )
+    from crfconv_tpu_torch.train.train_state import (
+        TRAIN_MODE, build_windowed_batch,
+    )
+
+    gen = torch.Generator().manual_seed(0)
+    model, step_table, eval_table = {
+        "flagship": (lambda: PointConvResNet(13, 6, use_crf=True, steps=1,
+                                             device="cpu", generator=gen),
+                     chip_smoke.EXPECTED_PER_STEP,
+                     chip_smoke.EXACT_PER_REQUEST),
+        "scannet": (lambda: CRFSegNet(20, 6, steps=2, device="cpu",
+                                      generator=gen),
+                    chip_smoke.SCANNET_PER_STEP,
+                    chip_smoke.SCANNET_EXACT_PER_REQUEST),
+        "discrete": (lambda: BaselineDiscreteCRFSegNet(
+            20, 6, steps=2, device="cpu", generator=gen),
+            chip_smoke.DISCRETE_PER_STEP,
+            chip_smoke.DISCRETE_EXACT_PER_REQUEST),
+    }[path]
+    model = model()
+    rng = np.random.default_rng(0)
+    raw = RawBatch(pos=torch.as_tensor(rng.random((2, 1024, 3),
+                                                  dtype=np.float32)),
+                   x=torch.as_tensor(rng.random((2, 1024, 6),
+                                                dtype=np.float32)),
+                   y=torch.as_tensor(rng.integers(0, 13, (2, 1024))))
+    names = ("leaky_relu_bwd", "batch_norm_stats", "batch_norm_apply",
+             "batch_norm_bwd")
+    calls = collections.Counter()
+    with card_dispatch(calls):
+        make_train_step(TRAIN_MODE)(TrainState.create(model, lr=0.01), raw,
+                                    torch.Generator().manual_seed(1))
+    assert dict(calls) == {k: step_table[k] for k in names}
+    calls.clear()
+    batch = build_windowed_batch(raw, torch.Generator().manual_seed(2),
+                                 mode=TRAIN_MODE)
+    model.eval()
+    with card_dispatch(calls), torch.no_grad():
+        model(batch, TRAIN_MODE)
+    assert dict(calls) == {"batch_norm_apply":
+                           eval_table["batch_norm_apply"]}
 
 
 @pytest.mark.parametrize("res,ok", [
@@ -323,9 +400,9 @@ def _probed(rooms, tmp_path, eval_launches):
 def test_probed_trainer_step_launches(failures, host_events, rooms, tmp_path,
                                       monkeypatch):
     """The instrumented Trainer's launch checks: on the CPU a wrapper counts
-    no launch. A step reads no counts (its timed window holds the step
-    alone): the run's counts are checked after it, and a run a step short
-    of K15's 47 launches fails. An eval batch expected to launch fails as
+    no launch. A step (here under the card's dispatch) reads no counts (its
+    timed window holds the step alone): the run's counts are checked after
+    it, and a run a step short of K15's 10 launches fails. An eval batch expected to launch fails as
     it runs; expecting none passes. The first step's kernel calls are
     recorded, an epoch over placed batches gives one event ms a step, and
     a val epoch's confusion sums to the labelled points of its batches."""
@@ -337,12 +414,13 @@ def test_probed_trainer_step_launches(failures, host_events, rooms, tmp_path,
     tr = _probed(rooms, tmp_path, chip_smoke.TWO_VIEW_PER_EVAL)
     batch = next(iter(tr.train_loader))
     cuda_build.reset_launch_counts()
-    tr._train_step(tr.state, batch, tr.rng)
+    with card_dispatch(collections.Counter()):
+        tr._train_step(tr.state, batch, tr.rng)
     assert not failures
-    assert len(tr.probe["calls"]["step"]["leaky_relu_bwd"]) == 47
+    assert len(tr.probe["calls"]["step"]["leaky_relu_bwd"]) == 10
     chip_smoke.record_launches("probe test", cuda_build.launch_counts(),
                                chip_smoke.S3DIS_LOADER_PER_STEP, 1, "steps")
-    assert any("0 launches of leaky_relu_bwd in 1 steps, expected 47" in f
+    assert any("0 launches of leaky_relu_bwd in 1 steps, expected 10" in f
                for f in failures)
     failures.clear()
     tr._eval_batch(batch)
