@@ -6,7 +6,8 @@ features, 1-NN upsample, Gaussian similarity over the K spatial
 neighbours, the mean-field loop with C = c^T c, then an output MLP and
 concat-fusion with the skip features. ``GuideCRFConv`` (the small
 family's): linear + batch-norm unary and pairwise heads, the similarity
-with a radius mask, the same loop, a leaky-ReLU output.
+with a radius mask, the same loop (both inside the span ``crf``), a
+leaky-ReLU output.
 ``EdgeListContinuousCRFConv``: the reference's edge-list CRF block on one
 cloud, its edges padded to dense neighbour lists (``edges_to_padded``); no
 model uses it.
@@ -26,6 +27,7 @@ from crfconv_tpu_torch.ops.crf_sim import crf_similarity_message, sim_eligible
 from crfconv_tpu_torch.ops.neighbors import (
     NeighborMode, gather_neighbors, remove_self_loop, upsample_nearest,
 )
+from crfconv_tpu_torch.utils import profiling
 
 
 class ContinuousCRFConv(nn.Module):
@@ -131,17 +133,17 @@ class GuideCRFConv(nn.Module):
         nidx = remove_self_loop(neighbor_idx)
         xh = self.unary(x, mask)
         yh = self.pairwise(y, mask)
-        npos = gather_neighbors(pos, nidx, mode)
-        d2 = (pos[:, :, None, :] - npos).square().sum(dim=-1)
-        nmask = d2 <= self.radius * self.radius
-        if mask is not None:
-            valid_n = gather_neighbors(mask.to(pos.dtype)[..., None], nidx,
-                                       mode)[..., 0] > 0.5
-            nmask = nmask & valid_n
-        s = gaussian_similarity(yh, nidx, mode, mask=nmask)
-        return leaky_relu001(
-            crf_mean_field(xh, s, nidx, self.c, self.steps, mode)
-        )
+        with profiling.span("crf"):
+            npos = gather_neighbors(pos, nidx, mode)
+            d2 = (pos[:, :, None, :] - npos).square().sum(dim=-1)
+            nmask = d2 <= self.radius * self.radius
+            if mask is not None:
+                valid_n = gather_neighbors(mask.to(pos.dtype)[..., None],
+                                           nidx, mode)[..., 0] > 0.5
+                nmask = nmask & valid_n
+            s = gaussian_similarity(yh, nidx, mode, mask=nmask)
+            x = crf_mean_field(xh, s, nidx, self.c, self.steps, mode)
+        return leaky_relu001(x)
 
 
 def edges_to_padded(

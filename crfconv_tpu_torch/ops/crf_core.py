@@ -48,6 +48,7 @@ from crfconv_tpu_torch.ops._launch import (
 from crfconv_tpu_torch.ops.windowed import (
     PAD, TILE, _clamped_rows, _geometry, window_starts,
 )
+from crfconv_tpu_torch.utils import profiling
 
 MAX_H = 1024   # widest state the iterate kernels take
 # the kernels' arguments, packed as int64s (cuda_build)
@@ -504,9 +505,11 @@ def crf_core(
     kernels (the plain versions on CPU tensors). Differentiable in z, zp,
     s and M; idx gets no gradient. Counterpart of
     ``crfconv_tpu/ops/crf_pallas.py::crf_core``. Narrower floats run in
-    float32 and the result takes z's dtype."""
+    float32 and the result takes z's dtype. Its steps count in
+    ``profiling.crf_steps()`` while spans are on."""
     if steps < 1:
         raise ValueError(f"steps {steps} < 1")
+    profiling.count_crf_steps(steps)
     return _CRFCore.apply(z.contiguous(), zp.contiguous(), s.contiguous(),
                           M.contiguous(), idx, steps, tile, pad)
 

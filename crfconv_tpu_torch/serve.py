@@ -1,7 +1,8 @@
 """Inference API: raw clouds in, per-point labels out.
 
 Counterpart of ``crfconv_tpu/serve.py::Predictor``: Morton sort, pyramid
-build, forward and inverse permutation behind one call, on one device, or
+build (the model's own kernel sizes, ratios and up-link width), forward and
+inverse permutation behind one call, on one device, or
 point-sharded over the ranks of a point group (``mesh``): every rank sorts
 the request and builds its span of the pyramid
 (``parallel/spatial_build.py``), the model runs halo-exchanged
@@ -23,6 +24,23 @@ from crfconv_tpu_torch.utils import profiling
 
 # The serving regime: windowed, packed-key kNN selection.
 SERVING_MODE = NeighborMode("windowed", knn_exact=False)
+# The pyramid's defaults (``build_pyramid_windowed``'s: the flagship's)
+KERNEL_SIZES = (16, 16, 16, 16, 16)
+RATIOS = (4, 4, 4, 4, 2)
+K_UP = 1
+
+
+def check_pyramid(kernel_sizes: Sequence[int], ratios: Sequence[int],
+                  k_up: int) -> None:
+    """Raise ValueError for a pyramid that neither pyramid function can
+    take: one kernel size a ratio, every value at least 1."""
+    if not ratios or len(kernel_sizes) != len(ratios):
+        raise ValueError(f"{len(kernel_sizes)} kernel sizes for "
+                         f"{len(ratios)} ratios: the pyramid needs one "
+                         "kernel size a scale")
+    if min(*kernel_sizes, *ratios, k_up) < 1:
+        raise ValueError(f"kernel sizes {tuple(kernel_sizes)}, ratios "
+                         f"{tuple(ratios)} and k_up {k_up} must be >= 1")
 
 
 class Predictor:
@@ -45,12 +63,23 @@ class Predictor:
               point-sharded over its ranks, on the rank's device (the
               ``device`` argument is not used); every rank of the group
               calls with the same request and gets the whole result.
+      kernel_sizes, ratios, k_up: the model's pyramid (each scale's kNN
+              width and subsampling ratio, and the coarse neighbours each
+              point's up-link holds: 3 for ScanNet's CRFSegNet). The
+              defaults are the flagship's, ``build_pyramid_windowed``'s.
+              A pyramid that cannot be built raises ValueError here.
     """
 
     def __init__(
         self, model: torch.nn.Module, mode: NeighborMode = SERVING_MODE,
         device="cuda", seed: int = 0, mesh=None,
+        kernel_sizes: Sequence[int] = KERNEL_SIZES,
+        ratios: Sequence[int] = RATIOS, k_up: int = K_UP,
     ):
+        check_pyramid(kernel_sizes, ratios, k_up)
+        self.kernel_sizes = tuple(int(k) for k in kernel_sizes)
+        self.ratios = tuple(int(r) for r in ratios)
+        self.k_up = int(k_up)
         self.mesh = None
         if mesh is not None:
             from crfconv_tpu_torch.parallel.sharding import point_mesh
@@ -80,7 +109,8 @@ class Predictor:
         if offsets is None:
             gen = torch.Generator(device=self.device).manual_seed(self.seed)
         order, scales = build_pyramid_windowed(
-            pos, generator=gen, offsets=offsets, tile=self.mode.tile,
+            pos, self.kernel_sizes, self.ratios, k_up=self.k_up,
+            generator=gen, offsets=offsets, tile=self.mode.tile,
             pad=self.mode.pad, knn_exact=self.mode.knn_exact,
             device=self.device,
         )
@@ -136,11 +166,12 @@ class Predictor:
         order = morton_order(pos)
         pos_s = torch.take_along_dim(pos, order[..., None], dim=1)
         scales = build_pyramid_windowed_spatial(
-            pos_s, self.mesh, generator=gen, offsets=offsets, mode=self.mode)
+            pos_s, self.mesh, self.kernel_sizes, self.ratios, k_up=self.k_up,
+            generator=gen, offsets=offsets, mode=self.mode)
         n, world = int(pos.shape[1]), self.mesh.world
         x = torch.take_along_dim(feats, order[..., None], dim=1)
         if n in spatial_pyramid_scales(n, world, self.mode.tile,
-                                       self.mode.pad):
+                                       self.mode.pad, self.ratios):
             loc = n // world
             x = x[:, self.mesh.rank * loc:(self.mesh.rank + 1) * loc]
         if category is not None:
@@ -158,7 +189,8 @@ class Predictor:
 
         if n not in self._spatial:
             self._spatial[n] = make_spatial_forward(
-                self.model, self.mesh, set(pyramid_lengths(n)), self.mode)
+                self.model, self.mesh, set(pyramid_lengths(n, self.ratios)),
+                self.mode)
         return self._spatial[n]
 
     def _predict_spatial(self, pos, feats, offsets, category):

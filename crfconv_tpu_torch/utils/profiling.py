@@ -19,7 +19,10 @@ record is ranges-only, or there is no CUDA device), its parent span, the
 id of its request or step (the outermost span open in its thread) and the
 port's kernel launches made while it was open (``cuda_build``).
 ``bn_fallbacks`` counts the batch norms on CUDA tensors that kept
-PyTorch's ops (``ops/batch_norm.py::fallback_reason``).
+PyTorch's ops (``ops/batch_norm.py::fallback_reason``). ``crf_steps``
+counts the mean-field steps the continuous CRF's fused core ran
+(``ops/crf_core.py::crf_core``) while spans were on; off, a core's count
+is one test of the same module-level variable.
 """
 
 from __future__ import annotations
@@ -47,6 +50,26 @@ _OFF = contextlib.nullcontext()
 # (``ops/batch_norm.py::fallback_reason``), by reason, since the process
 # started
 _BN_FALLBACKS: dict = {}
+
+
+# mean-field steps of the fused continuous-CRF core counted while spans
+# were on, since the process started
+_CRF_STEPS = 0
+
+
+def count_crf_steps(steps: int) -> None:
+    """Add a fused core's ``steps`` to :func:`crf_steps`, inside
+    ``tracing`` only."""
+    global _CRF_STEPS
+    if _RECORD is not None:
+        _CRF_STEPS += steps
+
+
+def crf_steps() -> int:
+    """The mean-field steps the continuous CRF's fused core
+    (``ops/crf_core.py``, steps >= 2) ran inside ``tracing`` regions since
+    the process started; a difference over a region counts its steps."""
+    return _CRF_STEPS
 
 
 def count_bn_fallback(reason: str) -> None:
